@@ -1,22 +1,29 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-Drives the port's serving path end to end on the card and holds every
+Drives the port's two serving paths end to end on the card and holds every
 kernel it builds against its plain PyTorch version. Imports nothing of JAX
 and nothing of the JAX package. Phases (any failure ends the run with a
 non-zero exit and no result line):
 
-  1. build    nvcc builds src/repro_torch/kernels/csrc/gather_agg.cu for
-              sm_90a into build/repro_torch_kernels/ (git-ignored).
+  1. build    nvcc builds src/repro_torch/kernels/csrc/gather_agg.cu and
+              csrc/linattn.cu for sm_90a into build/repro_torch_kernels/
+              (git-ignored), all at once, and prints each kernel's
+              registers, shared memory and spills.
   2. kernels  gather_rows at every hop of a batch_pad=64 serve rung (the
               workspace and tree positions of a real micro-batch) and at an
               odd (33, 96) shape, bitwise against its plain version;
               gather_agg (sum/mean/max, f=10, d=100, float32 and bfloat16)
-              within the tolerances of tests/test_kernels.py. Each kernel's
-              device time (calls captured in a CUDA graph, timed with CUDA
-              events) stands beside its plain version's, one PyTorch call
-              that computes the same function (a yardstick the port never
-              calls), its bound, and its cost per call from the host.
+              within the tolerances of tests/test_kernels.py; linattn at the
+              RWKV6 prefill's shapes (BH = 8·64, dk = dv = 64, T 256 and
+              2048, chunk 64; T 24 at chunk 24 and chunk 1) and an odd shape
+              (BH 3, T 128, dk 32, dv 64), with a nonzero u and w in
+              (0.5, 1), within 5e-4 of its plain version, and once against
+              the token scan. Each kernel's device time (calls captured in a
+              CUDA graph, timed with CUDA events) stands beside its plain
+              version's, one PyTorch call that computes the same function
+              where there is one (a yardstick the port never calls), its
+              bound, and its cost per call from the host.
   3. serve    GNNServer with GraphSAGE at the paper's settings (3 layers,
               hidden 128, fanout 10) on the synthetic products graph at
               full scale (245,000 vertices, 4-way community partition),
@@ -28,6 +35,18 @@ non-zero exit and no result line):
   4. profile  32 unpaced micro-batches with the port's spans and
               torch.profiler on: host time per span, the device's busy
               share, and device time by kernel.
+  5. rwkv6    rwkv6-7b at its published width, cut to 2 layers, float32:
+              the CUDA prefill (through the linattn kernel) against the
+              same parameters' prefill on the CPU (plain versions), and
+              prefill(63) + decode_step(token 64) against prefill(64).
+  6. llm      LLMServer with rwkv6-7b at its published width and depth in
+              bfloat16 (random weights drawn on the card), max_batch=8,
+              gen_tokens=16: 64 prompts of the port's make_batch tokens,
+              lengths uniform in 128..2048, through start()/submit(). Gates
+              result shapes and range, >= 32 linattn launches per batch and
+              zero errors; prints prefill time per bucket, decode time per
+              token, tokens/s, latency p50/p99, and a profiled generate at
+              the largest bucket (device busy share, time by kernel).
 
 Output: one line per measurement; then the kernels' JSON line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -49,15 +68,21 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import plan_inference  # noqa: E402
+from repro_torch.data import make_batch  # noqa: E402
 from repro_torch.features import FeatureStore  # noqa: E402
 from repro_torch.graph import make_dataset  # noqa: E402
 from repro_torch.graph.partition import (community_partition,  # noqa: E402
                                          shard_features)
 from repro_torch.graph.sampler import sample_tree_block  # noqa: E402
 from repro_torch.kernels import gather_agg as ga  # noqa: E402
+from repro_torch.kernels import linattn as la  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.launch.serve import LLMServer, generate  # noqa: E402
 from repro_torch.models.gnn import GNNConfig, gnn_forward, init_gnn  # noqa: E402
+from repro_torch.models.transformer import (decode_step,  # noqa: E402
+                                            init_params, prefill)
 from repro_torch.obs import trace  # noqa: E402
 from repro_torch.serve import GNNServer  # noqa: E402
 from repro_torch.train.budget import next_bucket  # noqa: E402
@@ -65,6 +90,15 @@ from repro_torch.train.budget import next_bucket  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_FLOP_PER_S = 67e12             # H100 SXM float32 outside tensor cores
 SRC = "src/repro_torch/kernels/csrc/gather_agg.cu"
+LA_SRC = "src/repro_torch/kernels/csrc/linattn.cu"
+LA_TOL = 5e-4      # tests/test_kernels.py: chunked kernel vs plain, f32
+WIDE_TOL = 1e-3    # full-width 2-layer f32 prefill, CUDA vs CPU
+# Its returned state S, CUDA vs CPU: measured max abs err 2.1e-4 on |S| up
+# to 168 (H100), so an absolute floor plus a share of |S|.
+STATE_RTOL, STATE_ATOL = 1e-4, 1e-3
+DECODE_TOL = 5e-3  # prefill + decode vs prefill, tests/test_arch_smoke.py
+LLM_BATCH = 8
+GEN_TOKENS = 16
 AGG_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}   # test_kernels.py
 CPU_TOL = 1e-4     # served (GPU, f32) vs CPU forward: summation order only
 CACHE_BYTES = 32 << 20
@@ -145,13 +179,20 @@ def bound_ms(nbytes: int, flops: int = 0) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 def phase_build() -> None:
+    """Both libraries at once: one nvcc per source, started together."""
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    path, msgs = ga.build(verbose=True)
-    log("build", f"{os.path.relpath(path, ROOT)} in "
-                 f"{time.perf_counter() - t0:.2f} s")
-    for line in msgs.splitlines():
-        if "ptxas info" in line and ("Used" in line or "spill" in line):
-            log("build", line.strip())
+    with ThreadPoolExecutor(2) as pool:
+        futs = [pool.submit(mod.build, True) for mod in (ga, la)]
+        built = [f.result() for f in futs]
+    for path, msgs in built:
+        log("build", f"{os.path.relpath(path, ROOT)} built")
+        for line in msgs.splitlines():
+            if "Used" in line or "spill" in line or "smem" in line:
+                log("build", line.strip())
+    log("build", f"both libraries in {time.perf_counter() - t0:.2f} s; "
+                 f"linattn takes {la.smem_bytes()} B of dynamic shared "
+                 f"memory per block")
 
 
 # ---------------------------------------------------------------------------
@@ -236,6 +277,80 @@ def check_gather_agg(ws: torch.Tensor, hop_idx: list) -> dict:
     return dict(name="gather_agg", route="cuda", source=SRC,
                 replaces="src/repro/kernels/gather_agg.py:130",
                 max_abs_err=err, **timed["mean"])
+
+
+def linattn_inputs(g, bh: int, T: int, dk: int, dv: int, u_per_bh: bool):
+    """q, k, v standard normal; w uniform in (0.5, 1), the kernel's domain;
+    u nonzero (a fresh model's u is 0 and would hide the bonus term)."""
+    q, k = (torch.randn((bh, T, dk), generator=g, device="cuda")
+            for _ in range(2))
+    v = torch.randn((bh, T, dv), generator=g, device="cuda")
+    w = 0.5 + 0.5 * torch.rand((bh, T, dk), generator=g, device="cuda")
+    w = w.clamp_(min=0.5 + 2 ** -24)
+    u = torch.randn((bh, dk) if u_per_bh else (dk,), generator=g,
+                    device="cuda")
+    return q, k, v, w, u
+
+
+def linattn_cost(bh: int, T: int, dk: int, dv: int) -> tuple[int, int]:
+    """Bytes (q, k, w, v and u read once; o and S_out written once) and
+    flops (four products of 2·C·dk·dv per chunk per bh)."""
+    nbytes = 4 * (bh * T * (3 * dk + 2 * dv) + bh * dk + bh * dk * dv)
+    return nbytes, 8 * bh * T * dk * dv
+
+
+def check_linattn(seed: int) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bh = LLM_BATCH * 64
+    cases = [(bh, 256, 64, 64, 64, True), (bh, 2048, 64, 64, 64, True),
+             (bh, 24, 64, 64, 24, True), (bh, 24, 64, 64, 1, True),
+             (3, 128, 32, 64, 64, False)]
+    err, timed = 0.0, {}
+    for BH, T, dk, dv, chunk, per_bh in cases:
+        xs = linattn_inputs(g, BH, T, dk, dv, per_bh)
+        o, s = la.linattn_chunked(*xs, chunk=chunk)
+        o_ref, s_ref = ref.linattn_chunked_ref(*xs, chunk=chunk)
+        torch.cuda.synchronize()
+        e_o = float((o - o_ref).abs().max())
+        e_s = float((s - s_ref).abs().max())
+        ok = (torch.allclose(o, o_ref, rtol=LA_TOL, atol=LA_TOL)
+              and torch.allclose(s, s_ref, rtol=LA_TOL, atol=LA_TOL))
+        shape = f"BH={BH} T={T} dk={dk} dv={dv} chunk={chunk} " \
+                f"u {'(BH, dk)' if per_bh else '(dk,)'}"
+        if not ok:
+            raise AssertionError(f"linattn {shape}: max abs err o {e_o}, "
+                                 f"S {e_s} over tolerance {LA_TOL}")
+        err = max(err, e_o, e_s)
+        msg = f"linattn {shape}: max abs err o {e_o} S {e_s} (|o| up to " \
+              f"{float(o_ref.abs().max()):.2f}, tolerance {LA_TOL})"
+        if chunk == 64 and BH == bh:
+            ms = device_ms(lambda: la.linattn_chunked(*xs, chunk=chunk))
+            pms = device_ms(lambda: ref.linattn_chunked_ref(*xs,
+                                                            chunk=chunk))
+            host = call_ms(lambda: la.linattn_chunked(*xs, chunk=chunk))
+            nbytes, flops = linattn_cost(BH, T, dk, dv)
+            b, by = bound_ms(nbytes, flops)
+            msg += (f"; device {ms:.5f} ms (plain {pms:.5f}, no single "
+                    f"PyTorch call computes it); per call from the host "
+                    f"{host:.5f} ms; moves {nbytes} B, {flops} flops, bound "
+                    f"{b:.5f} ms ({by}), {100 * b / ms:.1f}% of bound")
+            timed[T] = dict(ms=ms, plain_ms=pms, library_ms=None,
+                            bound_ms=b, bound_by=by)
+        log("kernels", msg)
+    xs = linattn_inputs(g, 8, 64, 64, 64, True)
+    o, s = la.linattn_chunked(*xs, chunk=16)
+    o_scan, s_scan = ref.linattn_ref(*xs)
+    e_scan = max(float((o - o_scan).abs().max()),
+                 float((s - s_scan).abs().max()))
+    if not (torch.allclose(o, o_scan, rtol=LA_TOL, atol=LA_TOL)
+            and torch.allclose(s, s_scan, rtol=LA_TOL, atol=LA_TOL)):
+        raise AssertionError(f"linattn vs the token scan: max abs err "
+                             f"{e_scan} over tolerance {LA_TOL}")
+    log("kernels", f"linattn BH=8 T=64 chunk=16 vs the token scan "
+                   f"(linattn_ref): max abs err {e_scan}")
+    return dict(name="linattn", route="cuda", source=LA_SRC,
+                replaces="src/repro/kernels/linattn.py:93",
+                max_abs_err=max(err, e_scan), **timed[2048])
 
 
 # ---------------------------------------------------------------------------
@@ -424,6 +539,211 @@ def profile_window(srv, vertices: np.ndarray) -> None:
                        f"{100 * us / busy:5.1f}%  {name[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: RWKV6 at full width, 2 layers, float32
+# ---------------------------------------------------------------------------
+
+def phase_rwkv6_wide(seed: int) -> None:
+    """The published width with depth cut to 2 layers, in float32 so the
+    comparison is of the algorithm. u is set to small random values, since
+    a fresh model's u is 0 and would skip the bonus term."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=2,
+                              dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, g, "cuda")
+    for layer in params["layers"]:
+        layer["blk"]["u"] = 0.1 * torch.randn(
+            layer["blk"]["u"].shape, generator=g, device="cuda")
+    toks = make_batch(cfg, 2, 64, seed=seed)["tokens"]
+    la.reset_launches()
+    with torch.inference_mode():
+        gpu, st_gpu = prefill(params, cfg, {"tokens": toks}, max_seq=80)
+        torch.cuda.synchronize()
+        if la.launches["linattn"] != cfg.num_layers:
+            raise AssertionError(f"prefill launched linattn "
+                                 f"{la.launches['linattn']} times")
+        cpu_params = _tree_map(lambda t: t.cpu(), params)
+        t0 = time.perf_counter()
+        cpu, st_cpu = prefill(cpu_params, cfg, {"tokens": toks}, max_seq=80)
+        t_cpu = time.perf_counter() - t0
+        err = float((gpu.cpu() - cpu).abs().max())
+        err_s = max(float((a.s.cpu() - b.s).abs().max())
+                    for a, b in zip(st_gpu.caches, st_cpu.caches))
+        log("rwkv6", f"{cfg.name} 2 layers f32, B=2 S=64 prefill: CUDA "
+                     f"(linattn kernel) vs CPU (plain, {t_cpu:.1f} s): "
+                     f"logits max abs err {err} (|logits| up to "
+                     f"{float(cpu.abs().max()):.3f}, tolerance {WIDE_TOL}); "
+                     f"state max abs err {err_s} (|S| up to "
+                     f"{max(float(b.s.abs().max()) for b in st_cpu.caches):.3f}"
+                     f", rtol {STATE_RTOL}, atol {STATE_ATOL})")
+        if not torch.allclose(gpu.cpu(), cpu, rtol=WIDE_TOL, atol=WIDE_TOL):
+            raise AssertionError(f"CUDA prefill differs from the CPU's: max "
+                                 f"abs err {err} > {WIDE_TOL}")
+        for i, (a, b) in enumerate(zip(st_gpu.caches, st_cpu.caches)):
+            if not torch.allclose(a.s.cpu(), b.s, rtol=STATE_RTOL,
+                                  atol=STATE_ATOL):
+                raise AssertionError(
+                    f"layer {i}: CUDA prefill state differs from the CPU's "
+                    f"beyond rtol {STATE_RTOL}, atol {STATE_ATOL}")
+        last, state = prefill(params, cfg, {"tokens": toks[:, :63]},
+                              max_seq=80)
+        dl, _ = decode_step(params, cfg, toks[:, 63], state)
+        err_d = float((dl - gpu).abs().max())
+        log("rwkv6", f"prefill(63 tokens, chunk 63) + decode_step(token 64) "
+                     f"vs prefill(64): max abs err {err_d} (tolerance "
+                     f"{DECODE_TOL})")
+        if not torch.allclose(dl, gpu, rtol=DECODE_TOL, atol=DECODE_TOL):
+            raise AssertionError(f"decode after prefill differs from the "
+                                 f"longer prefill: {err_d} > {DECODE_TOL}")
+    del params, cpu_params, st_gpu, st_cpu, state
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: LLM serving, rwkv6-7b at full width and depth, bfloat16
+# ---------------------------------------------------------------------------
+
+def phase_llm(seed: int) -> int:
+    cfg = get_config("rwkv6-7b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                         "cuda")
+    torch.cuda.synchronize()
+    sizes = []
+    _tree_map(lambda t: sizes.append(t.numel()), params)
+    n_par = sum(sizes)
+    log("llm", f"{cfg.name}: {cfg.num_layers} layers, d_model "
+               f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+               f"{n_par} parameters in {cfg.dtype} drawn on the card in "
+               f"{time.perf_counter() - t0:.2f} s; "
+               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    srv = LLMServer(params, cfg, gen_tokens=GEN_TOKENS, max_batch=LLM_BATCH,
+                    device="cuda")
+    rng = np.random.default_rng(seed)
+    toks = make_batch(cfg, 64, 2048, seed=seed)["tokens"].numpy()
+    lengths = rng.integers(128, 2049, 64)
+    prompts = [toks[i, :n] for i, n in enumerate(lengths)]
+    # one request first, so the stream does not carry cuBLAS's start-up
+    warm = srv.submit(prompts[0][:128])
+    srv.pump(wait_s=0.0)
+    warm.wait(600.0)
+
+    # the main path: counts are zeroed just before it and read just after
+    la.reset_launches()
+    ga.reset_launches()
+    before = srv.stats()
+    torch.cuda.reset_peak_memory_stats()
+    srv.start()
+    try:
+        t_start = time.perf_counter()
+        tickets = [srv.submit(p) for p in prompts]
+        results = [t.wait(600.0) for t in tickets]
+        wall = time.perf_counter() - t_start
+    finally:
+        srv.stop()
+    launches = la.launches["linattn"]
+    st = srv.stats()
+    batches = st["batches"] - before["batches"]
+    buckets = {f"{b}x{s}": c - before["buckets"].get((b, s), 0)
+               for (b, s), c in st["buckets"].items()
+               if c > before["buckets"].get((b, s), 0)}
+
+    for r in results:
+        if r.shape != (GEN_TOKENS,) or r.dtype != np.int32 \
+                or not ((0 <= r) & (r < cfg.vocab_size)).all():
+            raise AssertionError(f"malformed result {r!r}")
+    if st["errors"] != 0:
+        raise AssertionError(f"{st['errors']} serving errors")
+    if batches == 0 or launches < cfg.num_layers * batches:
+        raise AssertionError(f"linattn launched {launches} times for "
+                             f"{batches} batches")
+    if ga.launches != {"gather_rows": 0, "gather_agg": 0}:
+        raise AssertionError(f"the LLM path launched {ga.launches}")
+    lat = np.array([1e3 * t.latency_s() for t in tickets])
+    log("llm", f"64 prompts (lengths {int(lengths.min())}..."
+               f"{int(lengths.max())}, {int(lengths.sum())} tokens) submitted "
+               f"at once: {batches} batches, buckets {buckets}, "
+               f"{64 * GEN_TOKENS} tokens generated in {wall:.3f} s = "
+               f"{64 * GEN_TOKENS / wall:.1f} tokens/s; latency p50 "
+               f"{np.percentile(lat, 50):.1f} ms p99 "
+               f"{np.percentile(lat, 99):.1f} ms; peak memory "
+               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+               f"linattn launches {launches} ({launches // batches} per "
+               f"batch); errors {st['errors']}")
+    llm_timings(params, cfg, sorted({s for (_, s) in st["buckets"]}), seed)
+    del params, srv
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _tree_map(fn, node):
+    """``fn`` over every tensor of a parameter tree of dicts and lists."""
+    if isinstance(node, dict):
+        return {k: _tree_map(fn, v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_tree_map(fn, v) for v in node]
+    return fn(node)
+
+
+def llm_timings(params, cfg, seq_buckets: list, seed: int) -> None:
+    """Prefill time per sequence bucket at batch 8 and decode time per
+    step (CUDA events, after a warm call), then one generate at the largest
+    bucket under torch.profiler: device busy share and time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    toks = make_batch(cfg, LLM_BATCH, max(seq_buckets), seed=seed + 1)[
+        "tokens"].cuda()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with torch.inference_mode():
+        for sp in seq_buckets:
+            batch = {"tokens": toks[:, :sp]}
+            prefill(params, cfg, batch, max_seq=sp + 24)
+            ev[0].record()
+            _, state = prefill(params, cfg, batch, max_seq=sp + 24)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms = ev[0].elapsed_time(ev[1])
+            log("llm", f"prefill {LLM_BATCH}x{sp}: {ms:.2f} ms "
+                       f"({LLM_BATCH * sp / ms * 1e3:.0f} prompt tokens/s)")
+        tok = toks[:, 0]
+        decode_step(params, cfg, tok, state)
+        steps = 8
+        ev[0].record()
+        for _ in range(steps):
+            _, state = decode_step(params, cfg, tok, state)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1]) / steps
+        log("llm", f"decode_step at batch {LLM_BATCH}: {ms:.2f} ms per step "
+                   f"({LLM_BATCH / ms * 1e3:.0f} tokens/s)")
+        batch = {"tokens": toks[:, :max(seq_buckets)]}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            generate(params, cfg, batch, GEN_TOKENS,
+                     max_seq=max(seq_buckets) + GEN_TOKENS + 8)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    if not by_name:
+        log("llm", "profile: no device activity recorded, busy share not "
+                   "measured")
+        return
+    log("llm", f"profiled generate {LLM_BATCH}x{max(seq_buckets)} + "
+               f"{GEN_TOKENS} tokens: {wall_us / 1e3:.1f} ms wall, device "
+               f"busy {busy / 1e3:.1f} ms = {100 * busy / wall_us:.2f}% "
+               f"(idle {100 - 100 * busy / wall_us:.2f}%)")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log("llm", f"{us / 1e3:10.3f} ms {100 * us / busy:5.1f}%  "
+                   f"{name[:90]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=4096)
@@ -444,10 +764,13 @@ def main() -> int:
     ds, store, cfg = build_world(args.seed)
     ws, hops = rung64_workspace(ds, store, cfg, args.seed + 1)
     kernels = [check_gather_rows(ws, hops, args.seed),
-               check_gather_agg(ws, hops)]
+               check_gather_agg(ws, hops), check_linattn(args.seed)]
     del ws, hops
     launches = phase_serve(ds, store, cfg, args.seed, args.requests,
                            args.qps)
+    del ds, store
+    phase_rwkv6_wide(args.seed)
+    launches["linattn"] = phase_llm(args.seed)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     torch.cuda.synchronize()

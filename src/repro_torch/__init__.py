@@ -6,6 +6,7 @@ imports nothing of JAX or of ``repro``: every host module it needs is its
 own copy. Entry points run on ``cuda`` by default and raise when no GPU is
 present, unless the caller passes ``device="cpu"``.
 
-Slice 1 is the serving path (``serve.GNNServer``); see ROADMAP.md for the
-modules still to come.
+Slice 1 is the GNN serving path (``serve.GNNServer``), slice 2 the RWKV6
+serving path (``launch.serve.LLMServer``); see ROADMAP.md for the modules
+still to come.
 """

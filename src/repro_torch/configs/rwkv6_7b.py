@@ -1,0 +1,10 @@
+"""rwkv6-7b — Finch: attention-free, data-dependent decay. [arXiv:2404.05892]"""
+from repro_torch.models.transformer.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="rwkv6-7b", family="ssm",
+    num_layers=32, d_model=4096, num_heads=0, num_kv_heads=0,
+    d_ff=14336, vocab_size=65536,
+    rwkv_head_dim=64,
+    source="arXiv:2404.05892",
+)

@@ -3,10 +3,8 @@
 Python side of ``csrc/gather_agg.cu`` (read that file's head for each
 kernel's design: which TPU kernel it replaces, what bounds it on the card,
 and what the design does about that). The source is compiled with ``nvcc``
-for ``sm_90a`` into a shared library with a plain C interface, at first use,
-under ``build/repro_torch_kernels/`` at the root of the checkout, and loaded
-with ``ctypes``. The library's name carries a hash of the source and flags,
-so an edited source is rebuilt and a built one is reused.
+for ``sm_90a`` at first use and loaded with ``ctypes`` by
+:mod:`repro_torch.kernels._build`.
 
 The wrappers take CUDA tensors only: they check device, dtype (float32 or
 bfloat16), rank, contiguity and int32 indices, raise on anything else,
@@ -19,19 +17,15 @@ where it launches its kernel, and nowhere else.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _build
+
 _SRC = Path(__file__).resolve().parent / "csrc" / "gather_agg.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+BUILD_DIR = _build.BUILD_DIR
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _REDUCES = {"sum": 0, "mean": 1, "max": 2}
@@ -57,49 +51,20 @@ def _count(name: str) -> None:
 # ---------------------------------------------------------------------------
 
 def library_path() -> Path:
-    digest = hashlib.sha1(_SRC.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libgather_agg-{digest}.so"
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and Path(CUDA_HOME, "bin", "nvcc").exists():
-        return str(Path(CUDA_HOME, "bin", "nvcc"))
-    raise RuntimeError("nvcc not found: put the CUDA toolkit's bin on PATH "
-                       "or set CUDA_HOME")
+    return _build.library_path(_SRC)
 
 
 def build(verbose: bool = False) -> tuple[Path, str]:
-    """Compile ``csrc/gather_agg.cu`` unless this source is built already.
-
-    Returns the library's path and the compiler's messages (``verbose``
-    adds ``-Xptxas -v``: registers, shared memory and spills per kernel;
-    empty when the library was already built). Raises if nvcc fails."""
-    out = library_path()
-    if out.exists():
-        return out, ""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)          # atomic: a concurrent build never sees half
-    return out, proc.stdout + proc.stderr
+    """Compile ``csrc/gather_agg.cu`` unless it is built already
+    (:func:`repro_torch.kernels._build.build`)."""
+    return _build.build(_SRC, verbose)
 
 
 def _library():
     global _lib
     with _lock:
         if _lib is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
+            lib = _build.load(_SRC)
             vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             lib.repro_gather_rows.argtypes = [vp, vp, vp, ll, ll, i, vp]
             lib.repro_gather_rows.restype = i

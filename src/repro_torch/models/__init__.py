@@ -1,2 +1,2 @@
-"""Model zoo of the port: the GNN models (the transformer side workload
-arrives with its own slice)."""
+"""Model zoo of the port: the GNN models and the transformer side workload
+(RWKV6 so far)."""

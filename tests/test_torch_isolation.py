@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.launch.serve import LLMServer
+from repro_torch.models import transformer
 from repro_torch.models.gnn.models import GNNConfig, init_gnn
 from repro_torch.serve import GNNServer
 
@@ -36,6 +39,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.serve.server" in res["modules"]
     assert "repro_torch.kernels.gather_agg" in res["modules"]
+    assert "repro_torch.kernels.linattn" in res["modules"]
+    assert "repro_torch.launch.serve" in res["modules"]
     assert res["bad"] == []
 
 
@@ -60,3 +65,17 @@ def test_server_without_gpu_raises():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GNNServer(graph=g, params=params, cfg=cfg,
                   store=np.zeros((4, 4), np.float32))
+
+
+def test_init_transformer_params_without_gpu_raises():
+    _no_gpu()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_params(smoke_variant(get_config("rwkv6-7b")))
+
+
+def test_llm_server_without_gpu_raises():
+    _no_gpu()
+    cfg = smoke_variant(get_config("rwkv6-7b"))
+    params = transformer.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLMServer(params, cfg)

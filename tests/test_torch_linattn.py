@@ -1,0 +1,142 @@
+"""The port's linear-attention plain versions against the JAX package's, on
+the same numpy inputs, at the shapes of tests/test_kernels.py plus T = 24 at
+chunk 24 and chunk 1, with u shaped (dk,) and (BH, dk).
+
+The chunked plain version is held against the Pallas kernel in interpret
+mode at the reference's 5e-4 (tests/test_kernels.py). The token scan, the
+chunked version with an incoming state and the decode step are held at
+1e-4: they differ from their counterparts only in float32 summation order
+(up to a few 1e-5 on outputs up to ~100). The CUDA kernel runs only on the
+card, where chip_smoke.py holds it against the same plain version.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jax_ops
+from repro.kernels.linattn import linattn_chunked as jax_linattn_chunked
+from repro.kernels.ref import linattn_ref as jax_linattn_ref
+from repro_torch.kernels import linattn as cuda_linattn
+from repro_torch.kernels import ops, ref
+
+SHAPES = [(2, 64, 16, 16, 16), (3, 128, 32, 64, 64), (1, 96, 8, 8, 32),
+          (2, 24, 16, 16, 24), (2, 24, 16, 16, 1)]
+U_SHAPES = ["dk", "bh"]
+TIGHT = dict(rtol=1e-4, atol=1e-4)
+KERNEL_TOL = dict(rtol=5e-4, atol=5e-4)
+
+
+def _inputs(BH, T, dk, dv, u_shape, seed=2):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((BH, T, dk)).astype(np.float32)
+    k = rng.standard_normal((BH, T, dk)).astype(np.float32)
+    v = rng.standard_normal((BH, T, dv)).astype(np.float32)
+    w = (0.6 + 0.39 * rng.random((BH, T, dk))).astype(np.float32)
+    u = rng.standard_normal((dk,) if u_shape == "dk" else (BH, dk)) \
+        .astype(np.float32)
+    state = rng.standard_normal((BH, dk, dv)).astype(np.float32)
+    return (q, k, v, w, u), state
+
+
+def _j(xs):
+    return [jnp.asarray(x) for x in xs]
+
+
+def _t(xs):
+    return [torch.from_numpy(x) for x in xs]
+
+
+@pytest.mark.parametrize("u_shape", U_SHAPES)
+@pytest.mark.parametrize("BH,T,dk,dv,chunk", SHAPES)
+def test_chunked_ref_matches_pallas_kernel(BH, T, dk, dv, chunk, u_shape):
+    xs, _ = _inputs(BH, T, dk, dv, u_shape)
+    o_j, s_j = jax_linattn_chunked(*_j(xs), chunk=chunk, interpret=True)
+    o_t, s_t = ref.linattn_chunked_ref(*_t(xs), chunk=chunk)
+    assert o_t.shape == (BH, T, dv) and s_t.shape == (BH, dk, dv)
+    assert o_t.dtype == s_t.dtype == torch.float32
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **KERNEL_TOL)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("u_shape", U_SHAPES)
+@pytest.mark.parametrize("BH,T,dk,dv,chunk", SHAPES)
+def test_token_scan_matches_reference(BH, T, dk, dv, chunk, u_shape):
+    xs, _ = _inputs(BH, T, dk, dv, u_shape)
+    o_j, s_j = jax_linattn_ref(*_j(xs))
+    o_t, s_t = ref.linattn_ref(*_t(xs))
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **TIGHT)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), **TIGHT)
+
+
+@pytest.mark.parametrize("u_shape", U_SHAPES)
+@pytest.mark.parametrize("BH,T,dk,dv,chunk", SHAPES)
+def test_chunked_ref_with_state_matches_jnp(BH, T, dk, dv, chunk, u_shape):
+    """A nonzero incoming state (the CUDA ops path with a state, and every
+    CPU call) against the reference's ``linattn_chunked_jnp``."""
+    xs, state = _inputs(BH, T, dk, dv, u_shape)
+    o_j, s_j = jax_ops.linattn_chunked_jnp(*_j(xs), state=jnp.asarray(state),
+                                           chunk=chunk)
+    o_t, s_t = ops.linattn(*_t(xs), state=torch.from_numpy(state),
+                           chunk=chunk)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **TIGHT)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), **TIGHT)
+
+
+@pytest.mark.parametrize("u_shape", U_SHAPES)
+@pytest.mark.parametrize("BH,T,dk,dv,chunk", SHAPES)
+def test_decode_step_matches_reference(BH, T, dk, dv, chunk, u_shape):
+    """T decode steps from a nonzero state, step for step."""
+    (q, k, v, w, u), state = _inputs(BH, T, dk, dv, u_shape)
+    s_j, s_t = jnp.asarray(state), torch.from_numpy(state)
+    u_j, u_t = jnp.asarray(u), torch.from_numpy(u)
+    for t in range(T):
+        xs = [x[:, t] for x in (q, k, v, w)]
+        o_j, s_j = jax_ops.linattn_step(*_j(xs), u_j, s_j)
+        o_t, s_t = ops.linattn_step(*_t(xs), u_t, s_t)
+        np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **TIGHT)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), **TIGHT)
+
+
+def test_cpu_dispatch_never_launches():
+    """On the CPU ``ops.linattn`` takes the plain chunked version, with or
+    without a state, and counts no kernel launch."""
+    cuda_linattn.reset_launches()
+    xs, state = _inputs(2, 32, 8, 8, "dk")
+    o, s = ops.linattn(*_t(xs), chunk=16)
+    o_ref, s_ref = ref.linattn_chunked_ref(*_t(xs), chunk=16)
+    assert torch.equal(o, o_ref) and torch.equal(s, s_ref)
+    ops.linattn(*_t(xs), state=torch.from_numpy(state), chunk=16)
+    assert cuda_linattn.launches == {"linattn": 0}
+
+
+@pytest.mark.parametrize("change,err,match", [
+    (dict(chunk=0), ValueError, "chunk"),
+    (dict(chunk=65, T=130), ValueError, "chunk"),
+    (dict(chunk=48), ValueError, "T % chunk"),
+    (dict(dk=80), ValueError, "dk"),
+    (dict(dtype=torch.bfloat16), TypeError, "float32"),
+    (dict(u_len=5), ValueError, "u must be"),
+    (dict(), ValueError, "CUDA"),
+])
+def test_kernel_wrapper_refuses_what_it_does_not_take(change, err, match):
+    """The CUDA wrapper checks its arguments before any build or launch; a
+    CPU tensor that passes every other check is refused for not lying on a
+    CUDA device. Nothing is counted."""
+    cuda_linattn.reset_launches()
+    BH, T, dk = 2, change.get("T", 64), change.get("dk", 16)
+    dtype = change.get("dtype", torch.float32)
+    q = torch.randn(BH, T, dk, dtype=dtype)
+    v = torch.randn(BH, T, 8, dtype=dtype)
+    u = torch.randn(change.get("u_len", dk), dtype=dtype)
+    with pytest.raises(err, match=match):
+        cuda_linattn.linattn_chunked(q, q.clone(), v, torch.full_like(q, .9),
+                                     u, chunk=change.get("chunk", 64))
+    assert cuda_linattn.launches == {"linattn": 0}
+
+
+def test_library_name_tracks_the_source():
+    p = cuda_linattn.library_path()
+    assert p.name.startswith("liblinattn-") and p.suffix == ".so"
+    assert p.parent == cuda_linattn._build.BUILD_DIR
+    assert p == cuda_linattn.library_path()
