@@ -16,14 +16,17 @@ non-zero exit and no result line):
               gather_agg (sum/mean/max, f=10, d=100, float32 and bfloat16)
               within the tolerances of tests/test_kernels.py; linattn at the
               RWKV6 prefill's shapes (BH = 8·64, dk = dv = 64, T 256 and
-              2048, chunk 64; T 24 at chunk 24 and chunk 1) and an odd shape
-              (BH 3, T 128, dk 32, dv 64), with a nonzero u and w in
-              (0.5, 1), within 5e-4 of its plain version, and once against
-              the token scan. Each kernel's device time (calls captured in a
-              CUDA graph, timed with CUDA events) stands beside its plain
-              version's, one PyTorch call that computes the same function
-              where there is one (a yardstick the port never calls), its
-              bound, and its cost per call from the host.
+              2048, chunk 64, the latter also with RWKV-like decays; T 24 at
+              chunk 24 and chunk 1; T 126 at chunk 63), a ragged dv (48),
+              and odd shapes (BH 3, T 128, dk 32; BH 5, T 96, dk 30, dv 45,
+              chunk 32), with a nonzero u and w in (0.5, 1], within 5e-4 of
+              its plain version, and once against the token scan. Each
+              kernel's device time (calls captured in a CUDA graph, timed
+              with CUDA events) stands beside its plain version's, one
+              PyTorch call that computes the same function where there is
+              one (a yardstick the port never calls), its bound, and its
+              cost per call from the host. linattn's bound counts its
+              products in 3xTF32 at the TF32 tensor-core peak.
   3. serve    GNNServer with GraphSAGE at the paper's settings (3 layers,
               hidden 128, fanout 10) on the synthetic products graph at
               full scale (245,000 vertices, 4-way community partition),
@@ -89,6 +92,7 @@ from repro_torch.train.budget import next_bucket  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_FLOP_PER_S = 67e12             # H100 SXM float32 outside tensor cores
+TF32_FLOP_PER_S = 495e12           # H100 SXM TF32 tensor cores, dense
 SRC = "src/repro_torch/kernels/csrc/gather_agg.cu"
 LA_SRC = "src/repro_torch/kernels/csrc/linattn.cu"
 LA_TOL = 5e-4      # tests/test_kernels.py: chunked kernel vs plain, f32
@@ -168,9 +172,10 @@ def moved_bytes(table: torch.Tensor, idx: torch.Tensor, out_rows: int) -> int:
             + int(torch.unique(idx).numel()) * row + out_rows * row)
 
 
-def bound_ms(nbytes: int, flops: int = 0) -> tuple[float, str]:
+def bound_ms(nbytes: int, flops: int = 0,
+             flop_rate: float = F32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -279,14 +284,20 @@ def check_gather_agg(ws: torch.Tensor, hop_idx: list) -> dict:
                 max_abs_err=err, **timed["mean"])
 
 
-def linattn_inputs(g, bh: int, T: int, dk: int, dv: int, u_per_bh: bool):
-    """q, k, v standard normal; w uniform in (0.5, 1), the kernel's domain;
-    u nonzero (a fresh model's u is 0 and would hide the bonus term)."""
+def linattn_inputs(g, bh: int, T: int, dk: int, dv: int, u_per_bh: bool,
+                   decay: str = "uniform"):
+    """q, k, v standard normal; w in the kernel's domain, uniform in
+    (0.5, 1) or RWKV-like exp(-exp(-6 + 0.5 z)) with z standard normal; u
+    nonzero (a fresh model's u is 0 and would hide the bonus term)."""
     q, k = (torch.randn((bh, T, dk), generator=g, device="cuda")
             for _ in range(2))
     v = torch.randn((bh, T, dv), generator=g, device="cuda")
-    w = 0.5 + 0.5 * torch.rand((bh, T, dk), generator=g, device="cuda")
-    w = w.clamp_(min=0.5 + 2 ** -24)
+    if decay == "uniform":
+        w = 0.5 + 0.5 * torch.rand((bh, T, dk), generator=g, device="cuda")
+        w = w.clamp_(min=0.5 + 2 ** -24)
+    else:
+        z = torch.randn((bh, T, dk), generator=g, device="cuda")
+        w = torch.exp(-torch.exp(-6 + 0.5 * z))
     u = torch.randn((bh, dk) if u_per_bh else (dk,), generator=g,
                     device="cuda")
     return q, k, v, w, u
@@ -299,15 +310,28 @@ def linattn_cost(bh: int, T: int, dk: int, dv: int) -> tuple[int, int]:
     return nbytes, 8 * bh * T * dk * dv
 
 
+def linattn_bound(nbytes: int, flops: int) -> tuple[float, str]:
+    """The card does this f32 function on its tensor cores in 3xTF32, three
+    TF32 products per f32 product, at the TF32 peak."""
+    return bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
+
+
 def check_linattn(seed: int) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
     bh = LLM_BATCH * 64
-    cases = [(bh, 256, 64, 64, 64, True), (bh, 2048, 64, 64, 64, True),
-             (bh, 24, 64, 64, 24, True), (bh, 24, 64, 64, 1, True),
-             (3, 128, 32, 64, 64, False)]
+    # (BH, T, dk, dv, chunk, u per bh, decay)
+    cases = [(bh, 256, 64, 64, 64, True, "uniform"),
+             (bh, 2048, 64, 64, 64, True, "uniform"),
+             (bh, 2048, 64, 64, 64, True, "rwkv"),
+             (bh, 24, 64, 64, 24, True, "uniform"),
+             (bh, 24, 64, 64, 1, True, "uniform"),
+             (bh, 126, 64, 64, 63, True, "uniform"),
+             (64, 256, 64, 48, 64, True, "uniform"),
+             (3, 128, 32, 64, 64, False, "uniform"),
+             (5, 96, 30, 45, 32, True, "uniform")]
     err, timed = 0.0, {}
-    for BH, T, dk, dv, chunk, per_bh in cases:
-        xs = linattn_inputs(g, BH, T, dk, dv, per_bh)
+    for BH, T, dk, dv, chunk, per_bh, decay in cases:
+        xs = linattn_inputs(g, BH, T, dk, dv, per_bh, decay)
         o, s = la.linattn_chunked(*xs, chunk=chunk)
         o_ref, s_ref = ref.linattn_chunked_ref(*xs, chunk=chunk)
         torch.cuda.synchronize()
@@ -316,24 +340,28 @@ def check_linattn(seed: int) -> dict:
         ok = (torch.allclose(o, o_ref, rtol=LA_TOL, atol=LA_TOL)
               and torch.allclose(s, s_ref, rtol=LA_TOL, atol=LA_TOL))
         shape = f"BH={BH} T={T} dk={dk} dv={dv} chunk={chunk} " \
-                f"u {'(BH, dk)' if per_bh else '(dk,)'}"
+                f"u {'(BH, dk)' if per_bh else '(dk,)'} w {decay}"
         if not ok:
             raise AssertionError(f"linattn {shape}: max abs err o {e_o}, "
                                  f"S {e_s} over tolerance {LA_TOL}")
         err = max(err, e_o, e_s)
         msg = f"linattn {shape}: max abs err o {e_o} S {e_s} (|o| up to " \
               f"{float(o_ref.abs().max()):.2f}, tolerance {LA_TOL})"
-        if chunk == 64 and BH == bh:
+        if chunk == 64 and BH == bh and decay == "uniform":
             ms = device_ms(lambda: la.linattn_chunked(*xs, chunk=chunk))
             pms = device_ms(lambda: ref.linattn_chunked_ref(*xs,
                                                             chunk=chunk))
             host = call_ms(lambda: la.linattn_chunked(*xs, chunk=chunk))
             nbytes, flops = linattn_cost(BH, T, dk, dv)
-            b, by = bound_ms(nbytes, flops)
+            b, by = linattn_bound(nbytes, flops)
+            b_f32, by_f32 = bound_ms(nbytes, flops)
             msg += (f"; device {ms:.5f} ms (plain {pms:.5f}, no single "
                     f"PyTorch call computes it); per call from the host "
                     f"{host:.5f} ms; moves {nbytes} B, {flops} flops, bound "
-                    f"{b:.5f} ms ({by}), {100 * b / ms:.1f}% of bound")
+                    f"{b:.5f} ms ({by}; 3xTF32 at 495 TF/s), "
+                    f"{100 * b / ms:.1f}% of bound; f32 SIMT bound (67 "
+                    f"TF/s, no tensor cores) {b_f32:.5f} ms ({by_f32}), "
+                    f"{100 * b_f32 / ms:.1f}%")
             timed[T] = dict(ms=ms, plain_ms=pms, library_ms=None,
                             bound_ms=b, bound_by=by)
         log("kernels", msg)

@@ -7,7 +7,9 @@ mode at the reference's 5e-4 (tests/test_kernels.py). The token scan, the
 chunked version with an incoming state and the decode step are held at
 1e-4: they differ from their counterparts only in float32 summation order
 (up to a few 1e-5 on outputs up to ~100). The CUDA kernel runs only on the
-card, where chip_smoke.py holds it against the same plain version.
+card, where chip_smoke.py holds it against the same plain version; its
+arithmetic (3xTF32 products, segment scan) is emulated on the CPU at the
+end of this file and held against the Pallas kernel at 5e-4.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -140,3 +142,134 @@ def test_library_name_tracks_the_source():
     assert p.name.startswith("liblinattn-") and p.suffix == ".so"
     assert p.parent == cuda_linattn._build.BUILD_DIR
     assert p == cuda_linattn.library_path()
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's arithmetic, emulated in plain PyTorch on the CPU: the
+# tensor-core products in 3xTF32 (and, to show why, in single-pass TF32),
+# the two-level decay scan in 8-row segments, reciprocals multiplied, the
+# bonus on the scores' diagonal. It lives here only; nothing runs it on a
+# path. The hardware's accumulation order inside an mma is not emulated.
+# ---------------------------------------------------------------------------
+
+SEG = 8           # rows per scan segment in csrc/linattn.cu (kSegRows)
+
+
+def _tf32(x):
+    """Round float32 to TF32 (10-bit mantissa), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``: through the int32 view."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b as the kernel's mma.sync 3xTF32: lo·hi + hi·lo + hi·hi."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm1(a, b):
+    """a @ b in single-pass TF32 (rejected for the kernel)."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _emulate_kernel(q, k, v, w, u, chunk, mm=_mm3):
+    """What csrc/linattn.cu computes, from a zero state, in float32."""
+    bh, T, dk = q.shape
+    dv = v.shape[-1]
+    S = torch.zeros((bh, dk, dv))
+    uf = u.expand(bh, dk)
+    idx = torch.arange(chunk)
+    strict = idx[None, :] < idx[:, None]
+    diag = idx[None, :] == idx[:, None]
+    outs = []
+    for c0 in range(0, T, chunk):
+        qb, kb, vb, wb = (x[:, c0:c0 + chunk] for x in (q, k, v, w))
+        tots = []
+        for s0 in range(0, chunk, SEG):
+            p = torch.ones((bh, dk))
+            for t in range(s0, min(s0 + SEG, chunk)):
+                p = p * wb[:, t]
+            tots.append(p)
+        el = torch.ones((bh, dk))
+        for p in tots:
+            el = el * p
+        qd, r = torch.empty_like(qb), torch.empty_like(qb)
+        for s0 in range(0, chunk, SEG):
+            e = torch.ones((bh, dk))
+            for s in range(s0 // SEG):
+                e = e * tots[s]
+            for t in range(s0, min(s0 + SEG, chunk)):
+                qd[:, t] = qb[:, t] * e
+                e = e * wb[:, t]
+                r[:, t] = 1.0 / e
+        kd = kb * r
+        kl = kb * (el[:, None, :] * r)
+        bonus = ((qb * uf[:, None, :]) * kb).sum(-1)
+        att = torch.where(strict, mm(qd, kd.transpose(1, 2)),
+                          torch.where(diag, bonus[:, :, None],
+                                      torch.zeros(())))
+        outs.append(mm(qd, S) + mm(att, vb))
+        S = el[:, :, None] * S + mm(kl.transpose(1, 2), vb)
+    return torch.cat(outs, 1), S
+
+
+def _decay_inputs(BH, T, dk, dv, decay, seed):
+    """q, k, v, u standard normal; w uniform in (0.5, 1) or RWKV-like,
+    exp(-exp(-6 + 0.5 z)) with z standard normal."""
+    rng = np.random.default_rng(seed)
+    q, k = (rng.standard_normal((BH, T, dk)).astype(np.float32)
+            for _ in range(2))
+    v = rng.standard_normal((BH, T, dv)).astype(np.float32)
+    if decay == "uniform":
+        w = 0.5 + 0.5 * rng.random((BH, T, dk))
+        w = np.maximum(w, 0.5 + 2 ** -24)
+    else:
+        w = np.exp(-np.exp(-6 + 0.5 * rng.standard_normal((BH, T, dk))))
+    u = rng.standard_normal((BH, dk)).astype(np.float32)
+    return q, k, v, w.astype(np.float32), u
+
+
+@pytest.mark.parametrize("decay", ["uniform", "rwkv"])
+def test_kernel_arithmetic_3xtf32_matches_pallas_kernel(decay):
+    """The kernel's 3xTF32 arithmetic at the prefill's head shape (dk = dv =
+    64, chunk 64) stays within the reference's 5e-4 of the Pallas kernel."""
+    xs = _decay_inputs(2, 256, 64, 64, decay, seed=13)
+    o_j, s_j = jax_linattn_chunked(*_j(xs), chunk=64, interpret=True)
+    o_e, s_e = _emulate_kernel(*_t(xs), chunk=64)
+    np.testing.assert_allclose(o_e.numpy(), np.asarray(o_j), **KERNEL_TOL)
+    np.testing.assert_allclose(s_e.numpy(), np.asarray(s_j), **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("decay", ["uniform", "rwkv"])
+def test_single_pass_tf32_misses_the_tolerance(decay):
+    """Why 3xTF32: the same arithmetic with single-pass TF32 products breaks
+    5e-4 against the Pallas kernel by far more than rounding noise."""
+    xs = _decay_inputs(2, 256, 64, 64, decay, seed=13)
+    o_j, _ = jax_linattn_chunked(*_j(xs), chunk=64, interpret=True)
+    o_e, _ = _emulate_kernel(*_t(xs), chunk=64, mm=_mm1)
+    excess = np.abs(o_e.numpy() - np.asarray(o_j)) \
+        / (KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * np.abs(np.asarray(o_j)))
+    assert excess.max() > 10.0
+
+
+@pytest.mark.parametrize("BH,T,dk,dv,chunk", [
+    (2, 126, 64, 64, 63), (2, 24, 16, 16, 24), (2, 24, 16, 16, 1),
+    (2, 128, 64, 48, 64), (3, 96, 30, 45, 32)])
+def test_kernel_arithmetic_ragged_matches_plain(BH, T, dk, dv, chunk):
+    """Ragged chunks (63, 24, 1), a ragged dv inside one block and a dk and
+    dv off the 16-byte copies: the emulation against the plain version."""
+    xs = _t(_decay_inputs(BH, T, dk, dv, "uniform", seed=5))
+    o_e, s_e = _emulate_kernel(*xs, chunk=chunk)
+    o_r, s_r = ref.linattn_chunked_ref(*xs, chunk=chunk)
+    torch.testing.assert_close(o_e, o_r, **KERNEL_TOL)
+    torch.testing.assert_close(s_e, s_r, **KERNEL_TOL)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    x = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12,
+                      1 + 3 * 2 ** -11, 3.0], dtype=torch.float32)
+    want = torch.tensor([1 + 2 ** -10, -(1 + 2 ** -10), 1.0,
+                         1 + 2 ** -9, 3.0])
+    assert torch.equal(_tf32(x), want)
