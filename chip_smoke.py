@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-Drives the port's two serving paths end to end on the card and holds every
-kernel it builds against its plain PyTorch version. Imports nothing of JAX
-and nothing of the JAX package. Phases (any failure ends the run with a
-non-zero exit and no result line):
+Drives the port's two serving paths and its GNN training path end to end
+on the card and holds every kernel it builds against its plain PyTorch
+version. Imports nothing of JAX and nothing of the JAX package. Phases
+(any failure ends the run with a non-zero exit and no result line):
 
   1. build    nvcc builds src/repro_torch/kernels/csrc/gather_agg.cu and
               csrc/linattn.cu for sm_90a into build/repro_torch_kernels/
@@ -38,11 +38,26 @@ non-zero exit and no result line):
   4. profile  32 unpaced micro-batches with the port's spans and
               torch.profiler on: host time per span, the device's busy
               share, and device time by kernel.
-  5. rwkv6    rwkv6-7b at its published width, cut to 2 layers, float32:
+  5. train    LeapGNN training on the same products world and model
+              (4 shards emulated on the card, hopgnn, pre-gathering,
+              merging, the async pipeline, batch 256 per model = 1024
+              global, AdamW with a cosine schedule as
+              examples/train_hopgnn.py): gather_rows at the four hops of
+              one (shard, step) of a real plan, bitwise and timed; one
+              iteration's loss and every grad leaf on CUDA against the
+              port on the CPU (plain gather_rows) within 1e-4 of each
+              leaf's largest value; then fit for 2 epochs of 8 iterations,
+              gating finite losses, no retraces after epoch 0 beyond one
+              per new merge pattern, and gather_rows launched once per
+              (shard, step, hop) of every iteration. Prints losses, steady
+              ms/iter, dispatch and plan ms/iter, rows fetched per
+              iteration, and one more epoch under torch.profiler (device
+              busy share, time by kernel). TF32 stays off.
+  6. rwkv6    rwkv6-7b at its published width, cut to 2 layers, float32:
               the CUDA prefill (through the linattn kernel) against the
               same parameters' prefill on the CPU (plain versions), and
               prefill(63) + decode_step(token 64) against prefill(64).
-  6. llm      LLMServer with rwkv6-7b at its published width and depth in
+  7. llm      LLMServer with rwkv6-7b at its published width and depth in
               bfloat16 (random weights drawn on the card), max_batch=8,
               gen_tokens=16: 64 prompts of the port's make_batch tokens,
               lengths uniform in 128..2048, through start()/submit(). Gates
@@ -51,7 +66,8 @@ non-zero exit and no result line):
               token, tokens/s, latency p50/p99, and a profiled generate at
               the largest bucket (device busy share, time by kernel).
 
-Output: one line per measurement; then the kernels' JSON line, the card's
+Output: one line per measurement; then the kernels' JSON line (launches
+summed over the paths, per path under ``launches_by_path``), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--requests 4096] [--qps 1000] [--seed 0]
@@ -72,6 +88,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import distributed as engine  # noqa: E402
 from repro_torch.core import plan_inference  # noqa: E402
 from repro_torch.data import make_batch  # noqa: E402
 from repro_torch.features import FeatureStore  # noqa: E402
@@ -87,8 +104,11 @@ from repro_torch.models.gnn import GNNConfig, gnn_forward, init_gnn  # noqa: E40
 from repro_torch.models.transformer import (decode_step,  # noqa: E402
                                             init_params, prefill)
 from repro_torch.obs import trace  # noqa: E402
+from repro_torch.optim import adamw, cosine_schedule  # noqa: E402
 from repro_torch.serve import GNNServer  # noqa: E402
+from repro_torch.train import Trainer  # noqa: E402
 from repro_torch.train.budget import next_bucket  # noqa: E402
+from repro_torch.train.pipeline import run_pipelined_epoch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_FLOP_PER_S = 67e12             # H100 SXM float32 outside tensor cores
@@ -107,6 +127,11 @@ AGG_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}   # test_kernels.py
 CPU_TOL = 1e-4     # served (GPU, f32) vs CPU forward: summation order only
 CACHE_BYTES = 32 << 20
 MAX_BATCH = 64
+SHARDS = 4
+TRAIN_EPOCHS, TRAIN_ITERS, TRAIN_BATCH = 2, 8, 256   # batch per model
+# one iteration's grads, CUDA vs CPU, per leaf: max abs err within this
+# share of the leaf's largest |value| (summation order only)
+TRAIN_RTOL = 1e-4
 
 
 def log(phase: str, msg: str) -> None:
@@ -388,8 +413,8 @@ def check_linattn(seed: int) -> dict:
 def build_world(seed: int):
     t0 = time.perf_counter()
     ds = make_dataset("products", scale=1.0, seed=seed)
-    part = community_partition(ds.communities, 4)
-    table, owner, local_idx = shard_features(ds.features, part, 4)
+    part = community_partition(ds.communities, SHARDS)
+    table, owner, local_idx = shard_features(ds.features, part, SHARDS)
     store = FeatureStore.from_array(table, owner=owner, local_idx=local_idx)
     cfg = GNNConfig(model="sage", num_layers=3, hidden_dim=128,
                     feature_dim=ds.feature_dim, num_classes=ds.num_classes,
@@ -398,7 +423,7 @@ def build_world(seed: int):
                  f"{ds.graph.num_edges} edges, d={ds.feature_dim}, "
                  f"{ds.num_classes} classes, 4 shards; sage 3x128 fanout 10; "
                  f"set up in {time.perf_counter() - t0:.2f} s")
-    return ds, store, cfg
+    return ds, store, cfg, part
 
 
 def rung64_workspace(ds, store, cfg, seed: int):
@@ -512,27 +537,53 @@ def phase_serve(ds, store, cfg, seed: int, requests: int,
     return launches
 
 
+def device_profile(fn, label: str, per: int, unit: str) -> None:
+    """Run ``fn`` under torch.profiler: the device's busy share of the
+    window's wall time, and device activity (kernels and copies) summed by
+    name, printed per ``unit`` (``per`` of them in the window). The
+    profiler's own host cost stretches the window, so the busy share is a
+    lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    if not by_name:
+        log(label, f"{per} x {unit} in {wall_us / 1e3:.1f} ms: no device "
+                   f"activity recorded, device busy share not measured")
+        return
+    log(label, f"{per} x {unit} in {wall_us / 1e3:.1f} ms under the "
+               f"profiler: device busy {busy / 1e3:.3f} ms = "
+               f"{100 * busy / wall_us:.2f}% of wall (idle "
+               f"{100 - 100 * busy / wall_us:.2f}%), {busy / per / 1e3:.3f} "
+               f"ms per {unit}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(label, f"{us / per / 1e3:9.3f} ms/{unit} {100 * us / busy:5.1f}%"
+                   f"  {name[:90]}")
+
+
 def profile_window(srv, vertices: np.ndarray) -> None:
     """Where the time of the serving path goes, in a traced run apart from
     the latency stream: micro-batches of up to 64 vertices driven back to
     back through ``predict`` (no pacing) with the port's spans on and
-    ``torch.profiler`` recording the device. Prints each span's mean, and
-    device activity (kernels and copies) summed by name against the
-    window's wall time under the profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    ``torch.profiler`` recording the device. Prints the device's busy share
+    and time by kernel, then each span's mean."""
     chunks = [np.unique(c) for c in
               np.array_split(vertices, max(1, vertices.size // MAX_BATCH))]
     trace.clear()
     trace.enable()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for c in chunks:
-                srv.predict(c.tolist())
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        device_profile(lambda: [srv.predict(c.tolist()) for c in chunks],
+                       "profile", len(chunks), "micro-batch")
     finally:
         trace.disable()
     spans: dict = {}
@@ -546,29 +597,186 @@ def profile_window(srv, vertices: np.ndarray) -> None:
         c, ns = spans[name]
         log("profile", f"span {name}: {c} x {ns / 1e6 / c:.3f} ms mean, "
                        f"{ns / 1e6:.1f} ms total")
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us()
-    busy = sum(by_name.values())
-    if not by_name:
-        log("profile", f"{len(chunks)} micro-batches in {wall_us / 1e3:.1f} "
-                       f"ms: no device activity recorded, device busy share "
-                       f"not measured")
-        return
-    log("profile", f"{len(chunks)} micro-batches in {wall_us / 1e3:.1f} ms "
-                   f"under the profiler: device busy {busy / 1e3:.3f} ms = "
-                   f"{100 * busy / wall_us:.2f}% of wall (idle "
-                   f"{100 - 100 * busy / wall_us:.2f}%), "
-                   f"{busy / len(chunks):.1f} us per micro-batch")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        log("profile", f"{us / len(chunks):9.1f} us/micro-batch "
-                       f"{100 * us / busy:5.1f}%  {name[:90]}")
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: RWKV6 at full width, 2 layers, float32
+# Phase 5: LeapGNN training
+# ---------------------------------------------------------------------------
+
+def check_gather_rows_train(trainer, plan) -> None:
+    """gather_rows at the four hops of (shard 0, step 0) of a real training
+    plan, on shard 0's pre-gathered workspace ``[local | fetched]``:
+    bitwise against its plain version, and timed as phase 2 times it."""
+    dev = engine.tree_map(lambda x: engine.upload(x, trainer.device),
+                          plan.device_args())
+    d = trainer.table.shape[-1]
+    recv = engine.EmulatedComm().exchange_global(trainer.table, dev["req"])
+    ws = torch.cat([trainer.table[0], recv[0].reshape(-1, d)], 0)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for h, hop in enumerate(dev["hop_idx"]):
+        idx = hop[0, 0].contiguous()
+        if not torch.equal(ga.gather_rows(ws, idx),
+                           ref.gather_rows_ref(ws, idx)):
+            raise AssertionError(f"gather_rows differs from plain at "
+                                 f"training hop {h}")
+        ms = device_ms(lambda: ga.gather_rows(ws, idx))
+        pms = device_ms(lambda: ref.gather_rows_ref(ws, idx))
+        lms = device_ms(lambda: torch.index_select(ws, 0, idx))
+        nbytes = moved_bytes(ws, idx, idx.numel())
+        b, _ = bound_ms(nbytes)
+        log("train", f"gather_rows training hop {h}: workspace "
+                     f"{tuple(ws.shape)} f32, n={idx.numel()}: device "
+                     f"{ms:.5f} ms (plain {pms:.5f}, index_select {lms:.5f})"
+                     f"; moves {nbytes} B, bound {b:.5f} ms; bitwise equal")
+        for k, v in zip(tot, (ms, pms, lms, b)):
+            tot[k] += v
+    log("train", f"gather_rows, 4 hops of one (shard, step): device "
+                 f"{tot['ms']:.5f} ms (plain {tot['plain_ms']:.5f}, "
+                 f"index_select {tot['library_ms']:.5f}, bound "
+                 f"{tot['bound_ms']:.5f}); an iteration runs "
+                 f"{plan.num_shards * plan.num_steps} such")
+
+
+def check_train_grads(trainer, plan, store, cfg) -> None:
+    """One iteration's loss and grad leaves on CUDA (the gather_rows
+    kernel) against the same parameters' iteration on the CPU (plain
+    gather_rows)."""
+    import copy
+    t0 = time.perf_counter()
+    g_gpu, l_gpu = engine.run_iteration(trainer.params, trainer.table,
+                                        plan, cfg)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    params_cpu = copy.deepcopy(trainer.params).cpu()
+    t0 = time.perf_counter()
+    g_cpu, l_cpu = engine.run_iteration(params_cpu, store.as_dense(), plan,
+                                        cfg, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    errs = []
+    for i, (a, b) in enumerate(zip(g_gpu, g_cpu)):
+        err = float((a.cpu() - b).abs().max())
+        scale = float(b.abs().max())
+        errs.append(err)
+        if err > TRAIN_RTOL * scale:
+            raise AssertionError(f"grad leaf {i} {tuple(b.shape)}: CUDA vs "
+                                 f"CPU max abs err {err} > {TRAIN_RTOL} x "
+                                 f"{scale}")
+    e_loss = abs(float(l_gpu) - float(l_cpu))
+    if e_loss > TRAIN_RTOL * abs(float(l_cpu)):
+        raise AssertionError(f"loss CUDA {float(l_gpu)} vs CPU "
+                             f"{float(l_cpu)}")
+    log("train", f"one iteration (T={plan.num_steps}, batch_pad "
+                 f"{plan.batch_pad}, r_max {plan.r_max}): loss CUDA "
+                 f"{float(l_gpu):.7f} vs CPU {float(l_cpu):.7f} (abs err "
+                 f"{e_loss:.3g}); grad leaves max abs err "
+                 f"{[float(f'{e:.3g}') for e in errs]} (each within "
+                 f"{TRAIN_RTOL} x the leaf's largest |g|); CUDA "
+                 f"{t_gpu:.3f} s incl. first calls, CPU {t_cpu:.2f} s")
+
+
+def phase_train(ds, store, part, cfg, seed: int) -> int:
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on; training parity needs it off")
+    total = TRAIN_EPOCHS * TRAIN_ITERS
+    opt = adamw(cosine_schedule(3e-3, warmup=10, total=total),
+                weight_decay=1e-4, grad_clip=1.0,
+                key=("cos", 3e-3, 10, total))
+    trainer = Trainer(graph=ds.graph, labels=ds.labels, part=part,
+                      owner=store.owner, local_idx=store.local_idx,
+                      table=store, cfg=cfg, optimizer=opt, init_seed=seed,
+                      strategy="hopgnn", pregather=True,
+                      train_vertices=ds.train_vertices(), device="cuda")
+    log("train", f"hopgnn, pregather, merging {trainer.merging}, pipeline "
+                 f"{trainer.pipeline}, {SHARDS} shards on one card, batch "
+                 f"{TRAIN_BATCH} per model ({SHARDS * TRAIN_BATCH} global), "
+                 f"{trainer.planner_threads} planner threads; tf32 matmul "
+                 f"{torch.backends.cuda.matmul.allow_tf32} cudnn "
+                 f"{torch.backends.cudnn.allow_tf32}")
+    plan = trainer.build_plan(0, 0, TRAIN_BATCH)
+    trainer._drain_plan_stats()
+    check_gather_rows_train(trainer, plan)
+    check_train_grads(trainer, plan, store, cfg)
+    del plan
+
+    # the main path: counts are zeroed just before it and read just after
+    ga.reset_launches()
+    t0 = time.perf_counter()
+    stats = trainer.fit(TRAIN_EPOCHS, TRAIN_ITERS,
+                        batch_per_model=TRAIN_BATCH)
+    wall = time.perf_counter() - t0
+    launches = ga.launches["gather_rows"]
+    want = sum((cfg.num_layers + 1) * SHARDS * st.num_steps * TRAIN_ITERS
+               for st in stats)
+    seen, retraces = set(), 0
+    for st in stats:
+        new = st.num_steps not in seen
+        seen.add(st.num_steps)
+        if st.epoch > 0:
+            retraces += st.traces - int(new)
+        log("train", f"epoch {st.epoch}: loss {st.loss:.5f}, merge pattern "
+                     f"{st.num_steps} steps{' (new)' if new else ''}, "
+                     f"traces {st.traces}, steady "
+                     f"{1e3 * st.steady_time_s / TRAIN_ITERS:.2f} ms/iter "
+                     f"(synced window), dispatch "
+                     f"{1e3 * st.dispatch_s / TRAIN_ITERS:.2f} ms/iter, plan "
+                     f"{1e3 * st.plan_time_s / max(st.plans_built, 1):.2f} "
+                     f"ms/plan ({st.plans_built} plans, on the prefetch "
+                     f"thread), rows fetched {st.remote_rows / TRAIN_ITERS:.1f}"
+                     f"/iter, wall {st.time_s:.3f} s")
+    log("train", f"fit {TRAIN_EPOCHS}x{TRAIN_ITERS} in {wall:.2f} s; "
+                 f"gather_rows launches {launches} (want {want} = "
+                 f"(layers+1) x shards x steps per iteration, summed); "
+                 f"retraces after epoch 0 beyond one per new merge pattern "
+                 f"{retraces}; budget {trainer.budget.signature()} with "
+                 f"{trainer.budget.rebuckets} rebuckets; uploads "
+                 f"{trainer._uploader.uploads}, shape changes "
+                 f"{trainer._uploader.shape_changes}")
+    if not all(np.isfinite(st.loss) for st in stats):
+        raise AssertionError(f"non-finite loss: {[s.loss for s in stats]}")
+    if retraces != 0:
+        raise AssertionError(f"{retraces} retraces after epoch 0")
+    if launches != want:
+        raise AssertionError(f"gather_rows launched {launches} times, "
+                             f"want {want}")
+
+    # one more epoch of the same loop, profiled
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(1, thread_name_prefix="prefetch") as pool:
+        res = []
+        device_profile(lambda: res.append(run_pipelined_epoch(
+            trainer, TRAIN_EPOCHS, TRAIN_ITERS, TRAIN_BATCH, pool.submit,
+            loss_sync_iters=trainer.loss_sync_iters)), "train",
+            TRAIN_ITERS, "iteration")
+    log("train", f"profiled epoch: loss {np.mean(res[0].losses):.5f}, "
+                 f"merge pattern {res[0].num_steps} steps, traces "
+                 f"{res[0].traces}")
+    # the dispatch of a built plan with no planning in flight: what the
+    # fused step costs the host, and until the device is done with it
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    host, done = [], []
+    for i in range(4):
+        plan = trainer.build_plan(TRAIN_EPOCHS + 1, i, TRAIN_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        trainer._dispatch([plan])
+        host.append(1e3 * (time.perf_counter() - t0))
+        ev[1].record()
+        torch.cuda.synchronize()
+        done.append(ev[0].elapsed_time(ev[1]))
+    trainer._close_plan_pool()
+    log("train", f"one fused dispatch with no planning in flight (T="
+                 f"{plan.num_steps}), after a warm one: host "
+                 f"{np.mean(host[1:]):.2f} ms, device done after "
+                 f"{np.mean(done[1:]):.2f} ms (CUDA events)")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: RWKV6 at full width, 2 layers, float32
 # ---------------------------------------------------------------------------
 
 def phase_rwkv6_wide(seed: int) -> None:
@@ -629,7 +837,7 @@ def phase_rwkv6_wide(seed: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: LLM serving, rwkv6-7b at full width and depth, bfloat16
+# Phase 7: LLM serving, rwkv6-7b at full width and depth, bfloat16
 # ---------------------------------------------------------------------------
 
 def phase_llm(seed: int) -> int:
@@ -718,8 +926,6 @@ def llm_timings(params, cfg, seq_buckets: list, seed: int) -> None:
     """Prefill time per sequence bucket at batch 8 and decode time per
     step (CUDA events, after a warm call), then one generate at the largest
     bucket under torch.profiler: device busy share and time by kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     toks = make_batch(cfg, LLM_BATCH, max(seq_buckets), seed=seed + 1)[
         "tokens"].cuda()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -746,30 +952,11 @@ def llm_timings(params, cfg, seq_buckets: list, seed: int) -> None:
         log("llm", f"decode_step at batch {LLM_BATCH}: {ms:.2f} ms per step "
                    f"({LLM_BATCH / ms * 1e3:.0f} tokens/s)")
         batch = {"tokens": toks[:, :max(seq_buckets)]}
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            generate(params, cfg, batch, GEN_TOKENS,
-                     max_seq=max(seq_buckets) + GEN_TOKENS + 8)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us()
-    busy = sum(by_name.values())
-    if not by_name:
-        log("llm", "profile: no device activity recorded, busy share not "
-                   "measured")
-        return
-    log("llm", f"profiled generate {LLM_BATCH}x{max(seq_buckets)} + "
-               f"{GEN_TOKENS} tokens: {wall_us / 1e3:.1f} ms wall, device "
-               f"busy {busy / 1e3:.1f} ms = {100 * busy / wall_us:.2f}% "
-               f"(idle {100 - 100 * busy / wall_us:.2f}%)")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        log("llm", f"{us / 1e3:10.3f} ms {100 * us / busy:5.1f}%  "
-                   f"{name[:90]}")
+        log("llm", f"profiled generate {LLM_BATCH}x{max(seq_buckets)} + "
+                   f"{GEN_TOKENS} tokens:")
+        device_profile(lambda: generate(
+            params, cfg, batch, GEN_TOKENS,
+            max_seq=max(seq_buckets) + GEN_TOKENS + 8), "llm", 1, "generate")
 
 
 def main() -> int:
@@ -789,18 +976,23 @@ def main() -> int:
                   f"{torch.backends.cuda.matmul.allow_tf32} cudnn "
                   f"{torch.backends.cudnn.allow_tf32}")
     phase_build()
-    ds, store, cfg = build_world(args.seed)
+    ds, store, cfg, part = build_world(args.seed)
     ws, hops = rung64_workspace(ds, store, cfg, args.seed + 1)
     kernels = [check_gather_rows(ws, hops, args.seed),
                check_gather_agg(ws, hops), check_linattn(args.seed)]
     del ws, hops
-    launches = phase_serve(ds, store, cfg, args.seed, args.requests,
-                           args.qps)
+    by_path = {k["name"]: {} for k in kernels}
+    for name, n in phase_serve(ds, store, cfg, args.seed, args.requests,
+                               args.qps).items():
+        by_path[name]["gnn_serve"] = n
+    by_path["gather_rows"]["gnn_train"] = phase_train(ds, store, part, cfg,
+                                                      args.seed)
     del ds, store
     phase_rwkv6_wide(args.seed)
-    launches["linattn"] = phase_llm(args.seed)
+    by_path["linattn"]["llm_serve"] = phase_llm(args.seed)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = sum(by_path[k["name"]].values())
+        k["launches_by_path"] = by_path[k["name"]]
     torch.cuda.synchronize()
     log("done", f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

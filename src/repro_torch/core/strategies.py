@@ -1,21 +1,141 @@
-"""Serving planner: a micro-batch of vertices -> a device-ready InferencePlan.
+"""Iteration planner: strategy -> device-ready plans, on the host.
 
-The inference half of the reference planner (``repro.core.strategies``):
-stateless tree sampling, unique-row dedup against the hot-cache index, and
-translation of every tree position into the ``[cached | fetched]``
-workspace. ``plan_iteration`` (the training planner) arrives with the
-training slice.
+The planner is the host-side half of LeapGNN — the paper's system name; its
+title says "HopGNN" and this repo keeps ``hopgnn`` as the strategy key.
+It consumes a training-strategy name plus the mini-batch and emits
+rectangular numpy arrays the device engine executes without dynamic
+shapes:
+
+  * ``model_centric`` — DGL baseline: one step, no redistribution; every
+    shard fetches the (deduplicated) remote features of its whole subgraph.
+  * ``hopgnn``        — §5.1 micrograph training: redistribution by home
+    server, N rotating time steps, gradient accumulation. Pre-gathering
+    (§5.2) and merging (§5.3) are orthogonal switches.
+  * ``lo``            — locality-optimized baseline (§7.9): home-grouped,
+    one step, no migration — fast but biased batches.
+
+A copy of the reference's ``repro.core.strategies``: ``plan_iteration``
+(training) and ``plan_inference`` (serving) give plans bitwise equal to the
+reference's. Streamed plans (a tiered FeatureStore, where features ride in
+the plan) are not ported yet (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from concurrent.futures import Executor
+from typing import Literal, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.core.pregather import PlanOverflow
+from repro_torch.core.micrograph import (AssignmentMatrix, hopgnn_assignment,
+                                         lo_assignment,
+                                         model_centric_assignment)
+from repro_torch.core.pregather import (PlanOverflow, build_gather_plan,
+                                        workspace_indices)
 from repro_torch.graph.sampler import TreeBlock, sample_tree_block
 from repro_torch.graph.structs import CSRGraph
+from repro_torch.obs import trace as _obs_trace
+
+Strategy = Literal["model_centric", "hopgnn", "lo"]
+
+
+def _pmap(executor: Optional[Executor], fn, items: list,
+          label: Optional[str] = None) -> list:
+    """Map ``fn`` over ``items``, fanning out on ``executor`` when given.
+
+    The planner's per-(shard, step) work is numpy-heavy (sampling, dedup,
+    searchsorted translation) and releases the GIL, so a small thread pool
+    gives real multi-core planning without pickling graph structures.
+    With ``label`` and tracing enabled, each item is recorded as a span on
+    whichever thread runs it — the planner-pool fan-out shows up as its
+    own Perfetto lanes."""
+    if label is not None and _obs_trace.is_enabled():
+        inner = fn
+
+        def fn(item, _inner=inner, _label=label):  # noqa: F811
+            with _obs_trace.span(_label):
+                return _inner(item)
+    if executor is None or len(items) <= 1:
+        return [fn(x) for x in items]
+    return list(executor.map(fn, items))
+
+
+@dataclasses.dataclass
+class IterationPlan:
+    """Device-ready arrays (all stacked over the shard axis 0) + accounting.
+
+    Workspace layout on shard s: rows [0, local_rows) are the local feature
+    shard; rows [local_rows + p*r_max + j] hold the j-th pre-gathered row
+    from peer p. In per-step mode the remote region is rebuilt each step
+    from ``step_req``.
+    """
+
+    # --- static config ---
+    num_shards: int
+    num_steps: int
+    fanout: int
+    num_layers: int
+    pregather: bool
+    local_rows: int
+    r_max: int
+    batch_pad: int           # padded roots per (shard, step)
+    global_batch: int        # true total roots (loss normalization)
+
+    # --- device arrays ---
+    req: np.ndarray                      # (N, P, r_max) int32 (pregather) or
+    step_req: Optional[np.ndarray]       # (N, T, P, r_max) int32 (per-step)
+    hop_idx: list                        # [h]: (N, T, batch_pad * f**h) int32
+    labels: np.ndarray                   # (N, T, batch_pad) int32
+    weights: np.ndarray                  # (N, T, batch_pad) f32
+
+    # --- host accounting (exact, unpadded) ---
+    remote_rows_exact: int               # deduped remote feature rows fetched
+    remote_rows_nodedup: int             # without §5.2 dedup (per-step uniq)
+    total_rows: int                      # all feature rows touched (tree, dup)
+    unique_rows: int                     # deduped rows touched
+    step_unique_rows: int                # Σ per-(shard,step) unique rows
+    true_counts: np.ndarray              # (T, N) roots per (step, shard)
+    assignment: AssignmentMatrix
+
+    # --- remote-feature cache (repro_torch.cache; defaults = cache off) ---
+    c_max: int = 0                       # cached workspace region height
+    cache_version: int = -1              # CacheStore version planned against
+    cache_hit_rows: int = 0              # deduped remote rows served locally
+    remote_ids: Optional[list] = None    # per-shard deduped remote ids the
+    #                                      iteration requested (hits+misses)
+    #                                      — what a trailing LFU observes
+
+    # --- async pipeline (repro_torch.train.pipeline; None = not
+    # committed) ---
+    committed: Optional[dict] = None     # {"dev": device-resident
+    #                                      device_args tree, "denom": f32
+    #                                      scalar, "event": the upload's
+    #                                      CUDA event or None} uploaded
+    #                                      ahead of time by the plan
+    #                                      prefetch thread; the engine's
+    #                                      prepare fast path uses it verbatim
+
+    def miss_rate(self) -> float:
+        """Remote fraction of unique feature rows (paper Fig. 14)."""
+        return self.remote_rows_exact / max(self.unique_rows, 1)
+
+    def cache_hit_rate(self) -> float:
+        """Of the deduped remote rows this iteration needs, the fraction
+        served from the resident cache instead of the fabric."""
+        denom = self.cache_hit_rows + self.remote_rows_exact
+        return self.cache_hit_rows / max(denom, 1)
+
+    def miss_rate_per_request(self) -> float:
+        """Fig. 14's cache view: of all feature *requests* (one per unique
+        vertex per (shard, step)), the fraction served remotely, without
+        §5.2's cross-step dedup."""
+        return self.remote_rows_nodedup / max(self.step_unique_rows, 1)
+
+    def device_args(self):
+        """The tree of numpy arrays handed to the device engine."""
+        return dict(req=self.req, step_req=self.step_req,
+                    hop_idx=list(self.hop_idx), labels=self.labels,
+                    weights=self.weights)
 
 
 def _pad_tree_block(blk: TreeBlock, batch_pad: int,
@@ -32,6 +152,248 @@ def _pad_tree_block(blk: TreeBlock, batch_pad: int,
                       if ids.size else np.int64)])
         for h, ids in enumerate(blk.hops)]
     return TreeBlock(hops=hops, fanout=f)
+
+
+def _assignment_for(strategy: Strategy, roots_per_model, part,
+                    override: Optional[AssignmentMatrix]) -> AssignmentMatrix:
+    if override is not None:
+        return override
+    if strategy == "model_centric":
+        return model_centric_assignment(roots_per_model)
+    if strategy == "hopgnn":
+        return hopgnn_assignment(roots_per_model, part)
+    if strategy == "lo":
+        return lo_assignment(roots_per_model, part)
+    raise ValueError(f"unknown strategy {strategy!r}")
+
+
+def plan_iteration(graph: CSRGraph,
+                   labels: np.ndarray,
+                   part: np.ndarray,
+                   owner: np.ndarray,
+                   local_idx: np.ndarray,
+                   local_rows: int,
+                   roots_per_model: Sequence[np.ndarray],
+                   num_layers: int,
+                   fanout: int,
+                   strategy: Strategy = "hopgnn",
+                   pregather: bool = True,
+                   assignment: Optional[AssignmentMatrix] = None,
+                   rng: Optional[np.random.Generator] = None,
+                   sample_seed: Optional[int] = None,
+                   batch_pad: Optional[int] = None,
+                   r_max: Optional[int] = None,
+                   c_max: Optional[int] = None,
+                   cache_index=None,
+                   executor: Optional[Executor] = None,
+                   feature_store=None) -> IterationPlan:
+    """Compile one training iteration into an IterationPlan.
+
+    ``sample_seed`` switches to stateless per-root-deterministic sampling:
+    the tree below each root depends only on (root, seed), so two plans with
+    the same roots and seed — regardless of strategy — train *identical*
+    micrographs. This is the gradient-parity (accuracy fidelity) invariant.
+
+    ``executor``: optional thread pool the per-(shard, step) sampling and
+    per-shard index translation fan out on (the Trainer passes its planning
+    pool). Requires ``sample_seed`` for the sampling fan-out — a shared
+    stateful ``rng`` is not thread-safe, so with ``rng`` sampling stays
+    serial and only the translation parallelizes. Results are independent
+    of the executor (same blocks, same arrays, deterministic order).
+
+    ``cache_index``: resident remote-feature cache
+    (repro_torch.cache.CacheIndex); needed remote ids split into cache hits
+    (read from the device-resident cached region) and misses (shipped
+    through the exchange). ``c_max`` is the shape *budget* for the cached
+    region — the plan's actual cached height always equals the index's own
+    padded ``c_max``; a budget smaller than that raises
+    :class:`PlanOverflow` so the ShapeBudget can re-bucket explicitly (the
+    compile-once contract extended to cache growth).
+
+    ``feature_store``: a repro_torch.features.FeatureStore. A *resident*
+    store is the classic dense table and planning is unchanged; a *tiered*
+    one (streamed mode, features host-gathered into the plan) raises
+    ``NotImplementedError`` until that mode is ported (ROADMAP Queue 1 item 10).
+    """
+    if feature_store is not None and not feature_store.resident:
+        raise NotImplementedError(
+            "streamed plans from a tiered FeatureStore are not ported yet "
+            "(ROADMAP Queue 1 item 10, streamed training)")
+    if cache_index is not None and c_max is not None \
+            and cache_index.c_max > c_max:
+        raise PlanOverflow("c_max", int(cache_index.c_max), int(c_max))
+    if sample_seed is None:
+        rng = rng or np.random.default_rng(0)
+    n = len(roots_per_model)
+    if strategy == "lo":
+        # LO samples only within the local partition (that *is* the bias
+        # the paper measures in §7.9): drop cross-partition edges so every
+        # sampled neighbor — hence every feature — is local.
+        from repro_torch.graph.partition import drop_cross_edges
+        graph = drop_cross_edges(graph, part)
+    amat = _assignment_for(strategy, [np.asarray(r, np.int64)
+                                      for r in roots_per_model], part, assignment)
+    T = amat.num_steps
+
+    # Padding roots must add no phantom remote traffic: each (shard, step)
+    # block is sampled over its *true* roots only and then padded with a
+    # constant local vertex at every tree position (not with the pad
+    # vertex's real sampled neighborhood, which could be remote). The
+    # stateless sampler makes a root's subtree independent of its batch
+    # position, so true-root trees are unchanged; padded positions carry
+    # weight 0 and never touch the loss. This also makes planned remote
+    # requests a pure function of (roots, seed) — what the repro_torch.cache
+    # epoch prefetcher predicts.
+    pad_vertex = np.zeros(n, np.int64)
+    for s in range(n):
+        loc = np.nonzero(owner == s)[0]
+        pad_vertex[s] = loc[0] if loc.size else 0
+
+    counts = amat.root_counts()                      # (T, N)
+    if batch_pad is None:
+        batch_pad = max(1, int(counts.max()))
+    if counts.max() > batch_pad:
+        raise PlanOverflow("batch_pad", int(counts.max()), int(batch_pad))
+
+    # ---- sample one TreeBlock per (shard, step), pad with local rows ----
+    lab_arr = np.zeros((n, T, batch_pad), np.int32)
+    w_arr = np.zeros((n, T, batch_pad), np.float32)
+    jobs = []                                   # (s, t, true_roots, k)
+    for s in range(n):
+        for t in range(T):
+            roots = amat.roots_at(s, t)
+            k = roots.size
+            if k:
+                lab_arr[s, t, :k] = labels[roots]
+                w_arr[s, t, :k] = 1.0
+            jobs.append((s, t, roots, k))
+
+    sample_exec = executor if sample_seed is not None else None
+    blks = _pmap(sample_exec,
+                 lambda j: sample_tree_block(graph, j[2], num_layers, fanout,
+                                             rng=rng, seed=sample_seed),
+                 jobs, label="plan.sample")
+    blocks: list[list[TreeBlock]] = [[None] * T for _ in range(n)]  # [s][t]
+    true_root_blocks: list[TreeBlock] = []      # unpadded, for accounting
+    for (s, t, _, k), blk in zip(jobs, blks):
+        blocks[s][t] = _pad_tree_block(blk, batch_pad, pad_vertex[s])
+        if k:
+            true_root_blocks.append(blk)
+
+    # ---- gather plans ----
+    def shard_needed(s: int, ts: Sequence[int]) -> np.ndarray:
+        ids = [blocks[s][t].all_ids() for t in ts]
+        return np.concatenate(ids) if ids else np.zeros(0, np.int64)
+
+    hop_sizes = [batch_pad * fanout ** h for h in range(num_layers + 1)]
+    hop_idx = [np.zeros((n, T, sz), np.int32) for sz in hop_sizes]
+
+    if pregather:
+        needed = [shard_needed(s, range(T)) for s in range(n)]
+        plan = build_gather_plan(needed, owner, local_idx, n, local_rows,
+                                 r_max, cache=cache_index)
+        req, step_req = plan.req, None
+        r_max_eff = plan.r_max
+        c_max_eff = plan.c_max
+
+        def translate_shard(s: int) -> None:
+            # writes land in disjoint (s, t) slices — thread-safe fan-out
+            for t in range(T):
+                widx = workspace_indices(blocks[s][t].hops, s, owner,
+                                         local_idx, plan)
+                for h in range(num_layers + 1):
+                    hop_idx[h][s, t] = widx[h]
+
+        _pmap(executor, translate_shard, list(range(n)),
+              label="plan.translate")
+        remote_exact = plan.remote_rows_exact()
+        cache_hit_rows = plan.cache_hit_rows()
+        # only trailing-LFU observation consumes remote_ids; don't tax the
+        # cache-off planning hot path with the copies
+        remote_ids = ([plan.slot_map.shard_ids(s).copy() for s in range(n)]
+                      if cache_index is not None else None)
+    else:
+        # per-step exchange: dedup within a step only — redundant fetches
+        # across steps remain (that is exactly what §5.2 eliminates). A
+        # resident cache still dedups across steps implicitly: a cached
+        # vertex is a hit at *every* step that touches it.
+        step_plans = _pmap(
+            executor,
+            lambda t: build_gather_plan([shard_needed(s, [t])
+                                         for s in range(n)],
+                                        owner, local_idx, n, local_rows,
+                                        r_max, cache=cache_index),
+            list(range(T)), label="plan.step_gather")
+        r_max_eff = r_max or max(p.r_max for p in step_plans)
+        c_max_eff = step_plans[0].c_max if step_plans else 0
+        if any(p.req_count.max() > r_max_eff for p in step_plans):
+            raise PlanOverflow(
+                "r_max", int(max(p.req_count.max() for p in step_plans)),
+                int(r_max_eff))
+        step_req = np.zeros((n, T, n, r_max_eff), np.int32)
+
+        def translate_step(t: int) -> None:
+            p = step_plans[t]
+            if p.r_max != r_max_eff:   # rebuild with the common r_max
+                p = build_gather_plan([shard_needed(s, [t]) for s in range(n)],
+                                      owner, local_idx, n, local_rows,
+                                      r_max_eff, cache=cache_index)
+                step_plans[t] = p
+            step_req[:, t] = p.req
+            for s in range(n):
+                widx = workspace_indices(blocks[s][t].hops, s, owner,
+                                         local_idx, p)
+                for h in range(num_layers + 1):
+                    hop_idx[h][s, t] = widx[h]
+
+        _pmap(executor, translate_step, list(range(T)),
+              label="plan.translate")
+        req = np.zeros((n, n, r_max_eff), np.int32)  # unused in per-step mode
+        remote_exact = sum(p.remote_rows_exact() for p in step_plans)
+        cache_hit_rows = sum(p.cache_hit_rows() for p in step_plans)
+        remote_ids = ([
+            np.unique(np.concatenate(
+                [p.slot_map.shard_ids(s) for p in step_plans]
+                or [np.zeros(0, np.int64)]))
+            for s in range(n)] if cache_index is not None else None)
+
+    # ---- accounting over true (unpadded) roots ----
+    total_rows = sum(b.num_feature_rows() for b in true_root_blocks)
+    uniq_all: list[np.ndarray] = []
+    remote_nodedup = 0
+    step_unique = 0
+    for s in range(n):
+        per_step_ids = []
+        for t in range(T):
+            roots = amat.roots_at(s, t)
+            if roots.size == 0:
+                continue
+            ids = blocks[s][t].select(np.arange(roots.size)).all_ids()
+            per_step_ids.append(ids)
+        if per_step_ids:
+            allids = np.concatenate(per_step_ids)
+            uniq_all.append(np.unique(allids))
+            for ids in per_step_ids:
+                u = np.unique(ids)
+                step_unique += u.size
+                remote_nodedup += int((owner[u] != s).sum())
+    unique_rows = int(sum(u.size for u in uniq_all))
+
+    return IterationPlan(
+        num_shards=n, num_steps=T, fanout=fanout, num_layers=num_layers,
+        pregather=pregather, local_rows=local_rows, r_max=r_max_eff,
+        batch_pad=batch_pad,
+        global_batch=int(sum(np.asarray(r).size for r in roots_per_model)),
+        req=req, step_req=step_req, hop_idx=hop_idx, labels=lab_arr,
+        weights=w_arr,
+        remote_rows_exact=remote_exact, remote_rows_nodedup=remote_nodedup,
+        total_rows=total_rows, unique_rows=unique_rows,
+        step_unique_rows=step_unique,
+        true_counts=counts, assignment=amat,
+        c_max=c_max_eff,
+        cache_version=(cache_index.version if cache_index is not None
+                       else -1),
+        cache_hit_rows=cache_hit_rows, remote_ids=remote_ids)
 
 
 @dataclasses.dataclass

@@ -2,11 +2,13 @@
 
 A tensor on a CUDA device launches the hand-written kernel
 (:mod:`repro_torch.kernels.gather_agg`, :mod:`repro_torch.kernels.linattn`),
-which raises on anything it does not take; a tensor on the CPU takes the
-plain version (:mod:`ref`). The one other branch is the reference's own:
-``linattn`` with a given incoming state runs the chunked plain version on
-either device, as the reference runs ``linattn_chunked_jnp`` there. There
-is no fallback from a kernel to its plain version.
+which raises on anything it does not take — a gather from a table that
+requires grad included, since the gather kernels run forward only; a
+tensor on the CPU takes the plain version (:mod:`ref`), which autograd
+differentiates. The one other branch is the reference's own: ``linattn``
+with a given incoming state runs the chunked plain version on either
+device, as the reference runs ``linattn_chunked_jnp`` there. There is no
+fallback from a kernel to its plain version.
 """
 from __future__ import annotations
 
@@ -17,10 +19,28 @@ from repro_torch.kernels import linattn as _la
 from repro_torch.kernels import ref as _ref
 
 
+def needs_backward(table: torch.Tensor) -> bool:
+    """Whether autograd would want a gradient through a gather of
+    ``table``. The gather kernels run forward only (the reference's Pallas
+    kernels have no VJP and it never differentiates the workspace), so on
+    CUDA this is refused rather than answered with a result cut off from
+    the graph."""
+    return table.requires_grad and torch.is_grad_enabled()
+
+
+def _forward_only(table: torch.Tensor, name: str) -> None:
+    if needs_backward(table):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward, and "
+                           f"the table requires grad; gather under "
+                           f"torch.no_grad() or from a table that does not "
+                           f"require grad")
+
+
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[i] = table[idx[i]]."""
     if table.device.type == "cpu":
         return _ref.gather_rows_ref(table, idx)
+    _forward_only(table, "gather_rows")
     return _ga.gather_rows(table, idx)
 
 
@@ -29,6 +49,7 @@ def gather_agg(table: torch.Tensor, idx: torch.Tensor,
     """out[i] = reduce_j table[idx[i, j]] (fused gather + segment reduce)."""
     if table.device.type == "cpu":
         return _ref.gather_agg_ref(table, idx, reduce=reduce)
+    _forward_only(table, "gather_agg")
     return _ga.gather_agg(table, idx, reduce=reduce)
 
 

@@ -5,8 +5,12 @@ All models operate on fixed-fanout *tree blocks* (see
 (B * f**h, d). Aggregation is a dense reshape+reduce, never a scatter.
 """
 from repro_torch.models.gnn.models import (GNN, MODEL_REGISTRY, GNNConfig,
-                                           gnn_forward, init_gnn,
-                                           model_param_bytes, params_from_jax)
+                                           gnn_accuracy, gnn_forward,
+                                           gnn_loss, init_gnn,
+                                           model_param_bytes,
+                                           opt_state_from_jax,
+                                           params_from_jax, params_to_tree)
 
 __all__ = ["GNN", "GNNConfig", "MODEL_REGISTRY", "init_gnn", "gnn_forward",
-           "model_param_bytes", "params_from_jax"]
+           "gnn_loss", "gnn_accuracy", "model_param_bytes", "params_from_jax",
+           "params_to_tree", "opt_state_from_jax"]

@@ -8,7 +8,10 @@ fixed-fanout tree.
 
 The parameters are a :class:`GNN` module: ``layers[i]`` carries the
 reference's per-layer names, and ``head`` its ``w``/``b``. A JAX parameter
-tree converts with :func:`params_from_jax`.
+tree converts with :func:`params_from_jax` and back with
+:func:`params_to_tree`; :meth:`GNN.leaves` lists the tensors in the
+reference's ``jax.tree.leaves`` order (``head`` before ``layers``, each
+dict by sorted name), which the optimizers and the global norm follow.
 """
 from __future__ import annotations
 
@@ -76,6 +79,13 @@ class GNN(nn.Module):
             hs = new_hs
         return hs[0] @ self.head.w + self.head.b
 
+    def leaves(self) -> list:
+        """The parameters in the reference's leaf order: the tree
+        ``{"head": {"b", "w"}, "layers": [{...}, ...]}`` flattened with its
+        dict keys sorted."""
+        mods = [self.head, *self.layers]
+        return [getattr(m, k) for m in mods for k in sorted(m._parameters)]
+
 
 def init_gnn(cfg: GNNConfig, generator: Optional[torch.Generator] = None,
              device=None) -> GNN:
@@ -100,6 +110,28 @@ def gnn_forward(params: GNN, cfg: GNNConfig,
         raise ValueError(f"params have {len(params.layers)} layers, cfg "
                          f"{cfg.num_layers}")
     return params(feats, cfg.fanout)
+
+
+def gnn_loss(params: GNN, cfg: GNNConfig, feats, labels: torch.Tensor,
+             weight: Optional[torch.Tensor] = None):
+    """Softmax cross-entropy over the root vertices. Returns (loss, logits).
+
+    Without ``weight`` the loss is the mean. With a (B,) 0/1 ``weight`` —
+    padding roots carry 0 — it is the weighted *sum*, and the caller divides
+    by the true global batch, so gradients accumulated over time steps equal
+    the model-centric gradient (the accuracy-fidelity invariant, §5.1)."""
+    logits = gnn_forward(params, cfg, feats)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(1, labels.long()[:, None])[:, 0]
+    if weight is None:
+        return nll.mean(), logits
+    return torch.sum(nll * weight.to(nll.dtype)), logits
+
+
+def gnn_accuracy(params: GNN, cfg: GNNConfig, feats,
+                 labels: torch.Tensor) -> torch.Tensor:
+    logits = gnn_forward(params, cfg, feats)
+    return (logits.argmax(-1) == labels.long()).float().mean()
 
 
 def model_param_bytes(params: GNN) -> int:
@@ -137,3 +169,32 @@ def params_from_jax(tree, device=None) -> GNN:
         layers.append(LAYER_REGISTRY[kind][1]({k: t(v) for k, v in p.items()}))
     head = {k: t(v) for k, v in tree["head"].items()}
     return GNN(layers, head).to(device)
+
+
+def params_to_tree(params: GNN) -> dict:
+    """The inverse of :func:`params_from_jax`: the reference's tree layout
+    (``{"layers": [{name: array}], "head": {"w", "b"}}``) with numpy
+    float32 copies of the values."""
+    def arrays(m):
+        return {k: v.detach().cpu().numpy().copy()
+                for k, v in m._parameters.items()}
+    return {"layers": [arrays(layer) for layer in params.layers],
+            "head": arrays(params.head)}
+
+
+def opt_state_from_jax(state, device=None):
+    """Convert the reference's ``AdamState(step, mu, nu)`` (moment trees in
+    the parameter tree's layout) into the port's
+    :class:`repro_torch.optim.AdamState`: the step as an int32 CPU scalar,
+    the moments as float32 tensors on ``device`` (default ``cuda``) in
+    :meth:`GNN.leaves` order. Values are copied exactly."""
+    from repro_torch.core.distributed import tree_leaves
+    from repro_torch.optim import AdamState
+    device = resolve_device(device)
+
+    def moments(tree):
+        return [torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+                for x in tree_leaves(tree)]
+    return AdamState(step=torch.tensor(int(np.asarray(state.step)),
+                                       dtype=torch.int32),
+                     mu=moments(state.mu), nu=moments(state.nu))

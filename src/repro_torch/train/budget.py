@@ -132,8 +132,73 @@ class ShapeBudget:
         if self._active_key is not None:
             self.buckets[self._active_key] = [self.batch_pad, self.r_max]
 
-    # ``plan`` (training plans under the budget) arrives with the training
-    # slice, beside ``plan_iteration``; serving uses the rungs below.
+    @staticmethod
+    def _pattern_key(plan_kwargs: dict):
+        """The plan's merge pattern (num_steps), derived without planning:
+        an explicit assignment carries it; otherwise hopgnn's rotation has
+        one step per model and the one-step strategies have 1."""
+        assignment = plan_kwargs.get("assignment")
+        if assignment is not None:
+            return int(assignment.num_steps)
+        roots = plan_kwargs.get("roots_per_model")
+        if plan_kwargs.get("strategy", "hopgnn") == "hopgnn" \
+                and roots is not None:
+            return len(roots)
+        return 1 if roots is not None else "default"
+
+    def plan(self, planner=None, **plan_kwargs):
+        """Build an IterationPlan under this budget (bucketed shapes).
+
+        ``planner`` defaults to :func:`repro_torch.core.plan_iteration`;
+        any callable with the same keyword contract (and raising
+        :class:`repro_torch.core.PlanOverflow` on overflow) works. Streamed
+        plans (``l_max``) are not ported yet, so only resident plans are
+        budgeted here.
+        """
+        from repro_torch.core.pregather import PlanOverflow
+        if planner is None:
+            from repro_torch.core.strategies import plan_iteration as planner
+        key = self._pattern_key(plan_kwargs)
+        bucket = self.buckets.get(key)
+        if bucket is None:
+            seed_bp, seed_rm = self._seed
+            if seed_bp and seed_rm:
+                bucket = [seed_bp, seed_rm]
+            else:
+                # First plan of this pattern: probe exact sizes once, then
+                # bucket. The probe is host-side numpy only — it never
+                # touches the device engine, so it costs one extra planning
+                # pass per *pattern* and nothing after.
+                self.probes += 1
+                probe = planner(**plan_kwargs)
+                bucket = [next_bucket(probe.batch_pad,
+                                      max(self.min_batch_pad, seed_bp)),
+                          next_bucket(int(probe.r_max
+                                          * max(self.r_max_headroom, 1.0)),
+                                      max(self.min_r_max, seed_rm))]
+            self.buckets[key] = bucket
+        self._active_key = key
+        self.batch_pad, self.r_max = bucket
+        # c_max ceiling only applies to cache-aware plans; passing 0/None
+        # lets the first such plan teach the budget its height.
+        cache_kw = {}
+        if plan_kwargs.get("cache_index") is not None:
+            cache_kw = dict(c_max=self.c_max or None)
+        for _ in range(self.max_rebuckets + 1):
+            try:
+                out = planner(**plan_kwargs, batch_pad=self.batch_pad,
+                              r_max=self.r_max, **cache_kw)
+                self.plans_built += 1
+                if getattr(out, "c_max", 0) > self.c_max:
+                    self.c_max = int(out.c_max)    # first learn, no rebucket
+                return out
+            except PlanOverflow as e:
+                self.grow(e.field, e.needed)
+                if e.field == "c_max":
+                    cache_kw = dict(c_max=self.c_max)
+        raise RuntimeError(
+            f"shape budget failed to converge after {self.max_rebuckets} "
+            f"re-buckets (batch_pad={self.batch_pad}, r_max={self.r_max})")
 
     # ------------------------------------------------------------------
     # Serving buckets (repro_torch.serve): the same compile-once discipline for

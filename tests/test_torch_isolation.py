@@ -41,6 +41,11 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert "repro_torch.kernels.gather_agg" in res["modules"]
     assert "repro_torch.kernels.linattn" in res["modules"]
     assert "repro_torch.launch.serve" in res["modules"]
+    for name in ("optim.optimizers", "core.micrograph", "core.merging",
+                 "core.pregather", "core.strategies", "core.distributed",
+                 "cache.prefetch", "train.budget", "train.pipeline",
+                 "train.loop", "launch.train_gnn"):
+        assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
 
@@ -79,3 +84,17 @@ def test_llm_server_without_gpu_raises():
     params = transformer.init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LLMServer(params, cfg)
+
+
+def test_trainer_without_gpu_raises():
+    _no_gpu()
+    from repro_torch.graph.structs import CSRGraph
+    from repro_torch.train import Trainer
+    cfg = GNNConfig(model="sage", num_layers=1, hidden_dim=8, feature_dim=4,
+                    num_classes=3, fanout=2)
+    g = CSRGraph.from_edges(4, np.array([0, 1, 2]), np.array([1, 2, 3]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(graph=g, labels=np.zeros(4, np.int32),
+                part=np.array([0, 0, 1, 1]), owner=np.array([0, 0, 1, 1]),
+                local_idx=np.array([0, 1, 0, 1]),
+                table=np.zeros((2, 2, 4), np.float32), cfg=cfg)
