@@ -40,8 +40,8 @@ version. Imports nothing of JAX and nothing of the JAX package. Phases
               share, and device time by kernel.
   5. train    LeapGNN training on the same products world and model
               (4 shards emulated on the card, hopgnn, pre-gathering,
-              merging, the async pipeline, batch 256 per model = 1024
-              global, AdamW with a cosine schedule as
+              merging, the async pipeline, resilience off, batch 256 per
+              model = 1024 global, AdamW with a cosine schedule as
               examples/train_hopgnn.py): gather_rows at the four hops of
               one (shard, step) of a real plan, bitwise and timed; one
               iteration's loss and every grad leaf on CUDA against the
@@ -53,6 +53,27 @@ version. Imports nothing of JAX and nothing of the JAX package. Phases
               ms/iter, dispatch and plan ms/iter, rows fetched per
               iteration, and one more epoch under torch.profiler (device
               busy share, time by kernel). TF32 stays off.
+  ckpt        checkpoints, resilience, membership and the precomputed
+              tier on the same world and model (merging off, so the run is
+              a pure function of its seeds; 3 epochs x 6 iterations, batch
+              256 per model, the default resilience policy): a straight
+              run writing checkpoints under build/ (git-ignored); the same
+              run under injected faults (a prefetch-thread death, a comm
+              delay and drop, a NaN step, a peer death recovered by
+              rejoin), gated bitwise against it with exactly one rollback
+              and one membership recovery; a fresh Trainer resuming from
+              the straight run's epoch-1 checkpoint, gated bitwise, with
+              no new signature; precompute_embeddings over all 245,000
+              vertices (chunk 256: 958 chunks, gather_rows 958 x 4),
+              gated against the CPU forward at 256 vertices and for its
+              staleness refusal; then GNNServer(ckpt_dir, mode="auto")
+              under the phase 3 stream, gating precomputed hits, fresh
+              gather_rows launches, zero retraces and errors, and 256
+              answers against the table (bitwise) or the CPU forward.
+              Prints steady ms/iter, each recovery's cost, checkpoint
+              save/load ms and bytes, precompute time split into host
+              plan and forward, and the served rate, p50/p99 and share
+              answered from the table.
   6. rwkv6    rwkv6-7b at its published width, cut to 2 layers, float32:
               the CUDA prefill (through the linattn kernel) against the
               same parameters' prefill on the CPU (plain versions), and
@@ -75,8 +96,10 @@ name and power limit, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -104,8 +127,12 @@ from repro_torch.models.gnn import GNNConfig, gnn_forward, init_gnn  # noqa: E40
 from repro_torch.models.transformer import (decode_step,  # noqa: E402
                                             init_params, prefill)
 from repro_torch.obs import trace  # noqa: E402
+from repro_torch.checkpoint import (load_checkpoint,  # noqa: E402
+                                    save_checkpoint)
 from repro_torch.optim import adamw, cosine_schedule  # noqa: E402
-from repro_torch.serve import GNNServer  # noqa: E402
+from repro_torch.resilience import FaultPlan, FaultSpec  # noqa: E402
+from repro_torch.serve import (GNNServer, load_embeddings,  # noqa: E402
+                               precompute_embeddings)
 from repro_torch.train import Trainer  # noqa: E402
 from repro_torch.train.budget import next_bucket  # noqa: E402
 from repro_torch.train.pipeline import run_pipelined_epoch  # noqa: E402
@@ -132,6 +159,8 @@ TRAIN_EPOCHS, TRAIN_ITERS, TRAIN_BATCH = 2, 8, 256   # batch per model
 # one iteration's grads, CUDA vs CPU, per leaf: max abs err within this
 # share of the leaf's largest |value| (summation order only)
 TRAIN_RTOL = 1e-4
+CKPT_EPOCHS, CKPT_ITERS = 3, 6
+PRECOMPUTE_CHUNK = 256
 
 
 def log(phase: str, msg: str) -> None:
@@ -229,25 +258,37 @@ def phase_build() -> None:
 # Phase 2: kernels vs plain versions
 # ---------------------------------------------------------------------------
 
-def check_gather_rows(ws: torch.Tensor, hop_idx: list, seed: int) -> dict:
+def time_gather_rows(phase: str, what: str, ws: torch.Tensor,
+                     hop_idx: list, host: bool = False) -> dict:
+    """gather_rows at each hop of a real workspace: bitwise against its
+    plain version, then its device time beside the plain version's,
+    index_select's and its bound (and, with ``host``, its cost per call
+    from the host). Returns the sums over the hops."""
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     for h, idx in enumerate(hop_idx):
         if not torch.equal(ga.gather_rows(ws, idx),
                            ref.gather_rows_ref(ws, idx)):
-            raise AssertionError(f"gather_rows differs from plain at hop {h}")
+            raise AssertionError(f"gather_rows differs from plain at {what} "
+                                 f"hop {h}")
         ms = device_ms(lambda: ga.gather_rows(ws, idx))
         pms = device_ms(lambda: ref.gather_rows_ref(ws, idx))
         lms = device_ms(lambda: torch.index_select(ws, 0, idx))
-        host = call_ms(lambda: ga.gather_rows(ws, idx))
+        per_call = (f"; per call from the host "
+                    f"{call_ms(lambda: ga.gather_rows(ws, idx)):.5f} ms"
+                    if host else "")
         nbytes = moved_bytes(ws, idx, idx.numel())
         b, _ = bound_ms(nbytes)
-        log("kernels", f"gather_rows hop {h}: table {tuple(ws.shape)} f32, "
-                       f"n={idx.numel()}: device {ms:.5f} ms (plain "
-                       f"{pms:.5f}, index_select {lms:.5f}); per call from "
-                       f"the host {host:.5f} ms; moves {nbytes} B, bound "
-                       f"{b:.5f} ms; bitwise equal")
+        log(phase, f"gather_rows {what} hop {h}: table {tuple(ws.shape)} "
+                   f"f32, n={idx.numel()}: device {ms:.5f} ms (plain "
+                   f"{pms:.5f}, index_select {lms:.5f}){per_call}; moves "
+                   f"{nbytes} B, bound {b:.5f} ms; bitwise equal")
         for k, v in zip(tot, (ms, pms, lms, b)):
             tot[k] += v
+    return tot
+
+
+def check_gather_rows(ws: torch.Tensor, hop_idx: list, seed: int) -> dict:
+    tot = time_gather_rows("kernels", "serve", ws, hop_idx, host=True)
     g = torch.Generator().manual_seed(seed)
     for dtype in (torch.float32, torch.bfloat16):
         t = torch.randn((33, 96), generator=g).to("cuda", dtype)
@@ -465,26 +506,12 @@ def phase_serve(ds, store, cfg, seed: int, requests: int,
                  f"{w['ladder']}, {time.perf_counter() - t0:.2f} s")
 
     rng = np.random.default_rng(seed)
-    n = ds.num_vertices
-    p = np.arange(1, n + 1, dtype=np.float64) ** -1.1
-    vertices = rng.permutation(n)[rng.choice(n, requests, p=p / p.sum())]
+    vertices = zipf_vertices(rng, ds.num_vertices, requests)
 
     # the main path: counts are zeroed just before it and read just after
     ga.reset_launches()
     batches0 = srv.fresh_batches
-    srv.start()
-    gap = 1.0 / qps
-    tickets, t_next = [], time.perf_counter()
-    try:
-        for v in vertices:
-            now = time.perf_counter()
-            if now < t_next:
-                time.sleep(t_next - now)
-            tickets.append(srv.submit(int(v)))
-            t_next += gap
-        results = [t.wait(120.0) for t in tickets]
-    finally:
-        srv.stop()
+    tickets, results = open_loop(srv, vertices, qps)
     launches = dict(ga.launches)
     batches = srv.fresh_batches - batches0
 
@@ -535,6 +562,31 @@ def phase_serve(ds, store, cfg, seed: int, requests: int,
                  f"max abs diff {pack}")
     profile_window(srv, vertices[:32 * MAX_BATCH])
     return launches
+
+
+def zipf_vertices(rng, n: int, requests: int) -> np.ndarray:
+    """``requests`` vertex ids drawn zipf(1.1) over a random ranking."""
+    p = np.arange(1, n + 1, dtype=np.float64) ** -1.1
+    return rng.permutation(n)[rng.choice(n, requests, p=p / p.sum())]
+
+
+def open_loop(srv, vertices: np.ndarray, qps: float):
+    """Submit one request per vertex at ``qps`` through start()/submit(),
+    wait for every answer, stop the server. Returns (tickets, results)."""
+    srv.start()
+    gap = 1.0 / qps
+    tickets, t_next = [], time.perf_counter()
+    try:
+        for v in vertices:
+            now = time.perf_counter()
+            if now < t_next:
+                time.sleep(t_next - now)
+            tickets.append(srv.submit(int(v)))
+            t_next += gap
+        results = [t.wait(120.0) for t in tickets]
+    finally:
+        srv.stop()
+    return tickets, results
 
 
 def device_profile(fn, label: str, per: int, unit: str) -> None:
@@ -612,24 +664,9 @@ def check_gather_rows_train(trainer, plan) -> None:
     d = trainer.table.shape[-1]
     recv = engine.EmulatedComm().exchange_global(trainer.table, dev["req"])
     ws = torch.cat([trainer.table[0], recv[0].reshape(-1, d)], 0)
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    for h, hop in enumerate(dev["hop_idx"]):
-        idx = hop[0, 0].contiguous()
-        if not torch.equal(ga.gather_rows(ws, idx),
-                           ref.gather_rows_ref(ws, idx)):
-            raise AssertionError(f"gather_rows differs from plain at "
-                                 f"training hop {h}")
-        ms = device_ms(lambda: ga.gather_rows(ws, idx))
-        pms = device_ms(lambda: ref.gather_rows_ref(ws, idx))
-        lms = device_ms(lambda: torch.index_select(ws, 0, idx))
-        nbytes = moved_bytes(ws, idx, idx.numel())
-        b, _ = bound_ms(nbytes)
-        log("train", f"gather_rows training hop {h}: workspace "
-                     f"{tuple(ws.shape)} f32, n={idx.numel()}: device "
-                     f"{ms:.5f} ms (plain {pms:.5f}, index_select {lms:.5f})"
-                     f"; moves {nbytes} B, bound {b:.5f} ms; bitwise equal")
-        for k, v in zip(tot, (ms, pms, lms, b)):
-            tot[k] += v
+    tot = time_gather_rows("train", "training", ws,
+                           [hop[0, 0].contiguous()
+                            for hop in dev["hop_idx"]])
     log("train", f"gather_rows, 4 hops of one (shard, step): device "
                  f"{tot['ms']:.5f} ms (plain {tot['plain_ms']:.5f}, "
                  f"index_select {tot['library_ms']:.5f}, bound "
@@ -641,7 +678,6 @@ def check_train_grads(trainer, plan, store, cfg) -> None:
     """One iteration's loss and grad leaves on CUDA (the gather_rows
     kernel) against the same parameters' iteration on the CPU (plain
     gather_rows)."""
-    import copy
     t0 = time.perf_counter()
     g_gpu, l_gpu = engine.run_iteration(trainer.params, trainer.table,
                                         plan, cfg)
@@ -674,22 +710,31 @@ def check_train_grads(trainer, plan, store, cfg) -> None:
                  f"{t_gpu:.3f} s incl. first calls, CPU {t_cpu:.2f} s")
 
 
+def train_optimizer():
+    """examples/train_hopgnn.py's AdamW: cosine schedule, weight decay,
+    clipping, with a value key for the engine's fused-step cache."""
+    total = TRAIN_EPOCHS * TRAIN_ITERS
+    return adamw(cosine_schedule(3e-3, warmup=10, total=total),
+                 weight_decay=1e-4, grad_clip=1.0,
+                 key=("cos", 3e-3, 10, total))
+
+
 def phase_train(ds, store, part, cfg, seed: int) -> int:
     if torch.backends.cuda.matmul.allow_tf32 or \
             torch.backends.cudnn.allow_tf32:
         raise AssertionError("TF32 is on; training parity needs it off")
-    total = TRAIN_EPOCHS * TRAIN_ITERS
-    opt = adamw(cosine_schedule(3e-3, warmup=10, total=total),
-                weight_decay=1e-4, grad_clip=1.0,
-                key=("cos", 3e-3, 10, total))
     trainer = Trainer(graph=ds.graph, labels=ds.labels, part=part,
                       owner=store.owner, local_idx=store.local_idx,
-                      table=store, cfg=cfg, optimizer=opt, init_seed=seed,
+                      table=store, cfg=cfg, optimizer=train_optimizer(),
+                      init_seed=seed,
                       strategy="hopgnn", pregather=True,
-                      train_vertices=ds.train_vertices(), device="cuda")
+                      train_vertices=ds.train_vertices(), resilience=False,
+                      device="cuda")
     log("train", f"hopgnn, pregather, merging {trainer.merging}, pipeline "
-                 f"{trainer.pipeline}, {SHARDS} shards on one card, batch "
-                 f"{TRAIN_BATCH} per model ({SHARDS * TRAIN_BATCH} global), "
+                 f"{trainer.pipeline}, resilience "
+                 f"{'off' if trainer.resilience is None else 'on'}, "
+                 f"{SHARDS} shards on one card, batch {TRAIN_BATCH} per "
+                 f"model ({SHARDS * TRAIN_BATCH} global), "
                  f"{trainer.planner_threads} planner threads; tf32 matmul "
                  f"{torch.backends.cuda.matmul.allow_tf32} cudnn "
                  f"{torch.backends.cudnn.allow_tf32}")
@@ -772,6 +817,326 @@ def phase_train(ds, store, part, cfg, seed: int) -> int:
                  f"{np.mean(done[1:]):.2f} ms (CUDA events)")
     del trainer
     torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase ckpt: checkpoints, resilience, membership, the precomputed tier
+# ---------------------------------------------------------------------------
+
+def ckpt_trainer(ds, store, part, cfg, seed: int, ckpt_dir: str):
+    """Phase 5's Trainer with merging off (the merge controller is fed
+    wall-clock times, so two runs could choose different patterns) and
+    checkpoints under ``ckpt_dir``; the default resilience policy."""
+    return Trainer(graph=ds.graph, labels=ds.labels, part=part,
+                   owner=store.owner, local_idx=store.local_idx,
+                   table=store, cfg=cfg, optimizer=train_optimizer(),
+                   init_seed=seed, strategy="hopgnn", pregather=True,
+                   merging=False, train_vertices=ds.train_vertices(),
+                   ckpt_dir=ckpt_dir, device="cuda")
+
+
+def state_tensors(trainer) -> list:
+    st = trainer.opt_state
+    return list(trainer.params.leaves()) + list(st.mu) + list(st.nu) \
+        + [st.step]
+
+
+def same_state(a, b) -> bool:
+    return all(torch.equal(x, y)
+               for x, y in zip(state_tensors(a), state_tensors(b)))
+
+
+def log_fit(tag: str, stats) -> None:
+    for st in stats:
+        log("ckpt", f"{tag} epoch {st.epoch}: loss {st.loss!r}, steady "
+                    f"{1e3 * st.steady_time_s / CKPT_ITERS:.2f} ms/iter, "
+                    f"wall {st.time_s:.3f} s, traces {st.traces}, attempts "
+                    f"{st.epoch_attempts}, rollbacks {st.rollbacks}, "
+                    f"degradations {list(st.degradations)}, faults "
+                    f"{st.faults_injected}, comm retries {st.comm_retries}"
+                    f" (timeouts {st.comm_timeouts}), background errors "
+                    f"{st.bg_errors}, membership generation "
+                    f"{st.membership_generation} (recoveries "
+                    f"{st.membership_recoveries})")
+
+
+def checkpoint_cost(trainer, directory: str) -> None:
+    """One save and one load of the Trainer's {"params", "opt"} tree, as
+    its epoch boundary writes it; the load fills a fresh template on the
+    card and must equal the live state."""
+    tree = {"params": trainer.params, "opt": trainer.opt_state}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(directory, trainer.global_step, tree,
+                    extra={"epoch": CKPT_EPOCHS - 1})
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    nbytes = sum(os.path.getsize(os.path.join(directory, f))
+                 for f in os.listdir(directory) if f.startswith("step-"))
+    like_p = copy.deepcopy(trainer.params)
+    like = {"params": like_p, "opt": trainer.optimizer.init(like_p)}
+    t0 = time.perf_counter()
+    got, step, _ = load_checkpoint(directory, like)
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    ok = all(torch.equal(x, y) for x, y in zip(
+        list(got["params"].leaves()) + got["opt"].mu + got["opt"].nu,
+        list(trainer.params.leaves()) + trainer.opt_state.mu
+        + trainer.opt_state.nu)) and int(got["opt"].step) == int(
+        trainer.opt_state.step)
+    log("ckpt", f"checkpoint of params + AdamW moments (step {step}): save "
+                f"{save_ms:.2f} ms, load into the card's tensors "
+                f"{load_ms:.2f} ms, {nbytes} B on disk; loaded state "
+                f"bitwise the live one: {ok}")
+    if not ok:
+        raise AssertionError("a loaded checkpoint differs from the state "
+                             "it was saved from")
+
+
+def check_answers(tickets, results, tab, ds, store, cfg, params_cpu,
+                  seed: int) -> tuple[int, int]:
+    """256 served answers against their source: up to 128 distinct fresh
+    ones against the port's CPU forward (1e-4), the rest from the table,
+    which must be its row bit for bit."""
+    first = {}
+    for t, r in zip(tickets, results):
+        first.setdefault((t.via, int(t.payload)), r)
+    rng = np.random.default_rng(seed)
+    fresh = sorted(v for via, v in first if via == "fresh")
+    pre = sorted(v for via, v in first if via == "precomputed")
+    fresh = [int(v) for v in rng.permutation(fresh)[:128]]
+    pre = [int(v) for v in rng.permutation(pre)[:256 - len(fresh)]]
+    for v in pre:
+        if not np.array_equal(first[("precomputed", v)], tab.lookup([v])[0]):
+            raise AssertionError(f"precomputed answer for vertex {v} is not "
+                                 f"its table row")
+    err = 0.0
+    if fresh:
+        got = np.stack([first[("fresh", v)] for v in fresh])
+        want = offline_logits(ds, store, cfg, params_cpu, fresh)
+        err = float(np.abs(got - want).max())
+        if not np.allclose(got, want, rtol=CPU_TOL, atol=CPU_TOL):
+            raise AssertionError(f"fresh answers differ from the CPU "
+                                 f"forward: max abs err {err} > {CPU_TOL}")
+    log("ckpt", f"answers checked: {len(pre)} precomputed, each its table "
+                f"row bitwise; {len(fresh)} fresh vs the CPU forward, max "
+                f"abs err {err} (tolerance {CPU_TOL})")
+    return len(pre), len(fresh)
+
+
+def phase_ckpt(ds, store, part, cfg, seed: int, requests: int,
+               qps: float) -> dict:
+    base = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(base, ignore_errors=True)
+    dirs = {k: os.path.join(base, k)
+            for k in ("straight", "faulted", "resume", "probe")}
+    launches = {}
+    layers = cfg.num_layers + 1
+    per_run = layers * SHARDS * SHARDS * CKPT_ITERS * CKPT_EPOCHS
+
+    # 1. straight run, writing a checkpoint at each epoch boundary
+    ta = ckpt_trainer(ds, store, part, cfg, seed, dirs["straight"])
+    log("ckpt", f"card {card_line()}; {CKPT_EPOCHS} epochs x {CKPT_ITERS} "
+                f"iterations, batch "
+                f"{TRAIN_BATCH} per model, merging off, resilience "
+                f"{type(ta.resilience).__name__} (membership "
+                f"{ta.resilience.membership}, mode "
+                f"{ta.resilience.membership_mode}), checkpoints in "
+                f"{os.path.relpath(base, ROOT)}/")
+    t0 = time.perf_counter()
+    sa = ta.fit(CKPT_EPOCHS, CKPT_ITERS, batch_per_model=TRAIN_BATCH)
+    log_fit("straight", sa)
+    log("ckpt", f"straight run {time.perf_counter() - t0:.2f} s")
+    if not all(np.isfinite(st.loss) for st in sa):
+        raise AssertionError(f"non-finite loss: {[s.loss for s in sa]}")
+    checkpoint_cost(ta, dirs["probe"])
+
+    # 2. the same run under faults — counts zeroed just before, read after
+    fp = FaultPlan([
+        FaultSpec("thread_exc", epoch=1, it=1, site="prefetch"),
+        FaultSpec("comm_delay", epoch=1, it=3, delay_s=0.003),
+        FaultSpec("comm_drop", epoch=1, it=4, drops=1),
+        FaultSpec("peer_death", epoch=2, it=1, shard=2),
+        FaultSpec("nan_loss", epoch=2, it=4)], seed=seed, name="ckpt")
+    tb = ckpt_trainer(ds, store, part, cfg, seed, dirs["faulted"])
+    ga.reset_launches()
+    t0 = time.perf_counter()
+    with fp.active():
+        sb = tb.fit(CKPT_EPOCHS, CKPT_ITERS, batch_per_model=TRAIN_BATCH)
+    wall_b = time.perf_counter() - t0
+    launches["gnn_train_faulted"] = ga.launches["gather_rows"]
+    log_fit("faulted", sb)
+    kinds = sorted({k for k, *_ in fp.fired})
+    log("ckpt", f"faulted run {wall_b:.2f} s; fired {fp.fired}; "
+                f"gather_rows launches {launches['gnn_train_faulted']} "
+                f"(a clean run launches {per_run}; replays add more)")
+    for r in tb.recovery_log:
+        same = [st for st in sa if st.epoch == r["epoch"]][0]
+        log("ckpt", f"recovery in epoch {r['epoch']} after attempt "
+                    f"{r['attempt']}: {r['error']} -> "
+                    f"{r['rung'] or 'replay in mode'}; attempt wall lost "
+                    f"{1e3 * r['lost_s']:.1f} ms, recovery itself "
+                    f"{1e3 * r['recover_s']:.2f} ms (a clean epoch takes "
+                    f"{1e3 * same.time_s:.1f} ms)")
+    want_kinds = sorted({sp.kind for sp in fp.specs})
+    rollbacks = sum(st.rollbacks for st in sb)
+    recoveries = sum(st.membership_recoveries for st in sb)
+    bitwise = [a.loss for a in sa] == [b.loss for b in sb] \
+        and same_state(ta, tb)
+    log("ckpt", f"faulted vs straight: losses and parameters bitwise "
+                f"{bitwise}; kinds fired {kinds}; rollbacks {rollbacks}; "
+                f"membership recoveries {recoveries}")
+    if kinds != want_kinds:
+        raise AssertionError(f"fault kinds fired {kinds}, want {want_kinds}")
+    if not bitwise:
+        raise AssertionError("the faulted run is not bitwise the straight "
+                             "run")
+    if rollbacks != 1 or recoveries != 1 or tb.membership_recoveries != 1:
+        raise AssertionError(f"rollbacks {rollbacks}, membership recoveries"
+                             f" {recoveries}; want 1 and 1")
+    if launches["gnn_train_faulted"] <= per_run:
+        raise AssertionError("the replays launched no gather_rows")
+    del tb
+
+    # 3. resume from the straight run's epoch-1 checkpoint
+    step1 = 2 * CKPT_ITERS
+    os.makedirs(dirs["resume"])
+    for ext in ("npz", "json"):
+        name = f"step-{step1:08d}.{ext}"
+        shutil.copy(os.path.join(dirs["straight"], name),
+                    os.path.join(dirs["resume"], name))
+    with open(os.path.join(dirs["resume"], "latest"), "w") as f:
+        f.write(str(step1))
+    tc = ckpt_trainer(ds, store, part, cfg, seed, dirs["resume"])
+    t0 = time.perf_counter()
+    sc = tc.fit(CKPT_EPOCHS, CKPT_ITERS, batch_per_model=TRAIN_BATCH,
+                resume=True)
+    log_fit("resumed", sc)
+    ok = [s.epoch for s in sc] == [CKPT_EPOCHS - 1] \
+        and sc[0].loss == sa[-1].loss and same_state(ta, tc)
+    log("ckpt", f"resumed at step {step1} in {time.perf_counter() - t0:.2f}"
+                f" s: epoch {[s.epoch for s in sc]} loss and final state "
+                f"bitwise the straight run's {ok}; budget probes "
+                f"{tc.budget.probes}, new signatures {sc[0].traces}")
+    if not ok:
+        raise AssertionError("the resumed run is not bitwise the straight "
+                             "run")
+    if sc[0].traces != 0 or tc.budget.probes != 0:
+        raise AssertionError("the resumed run's first epoch re-probed or "
+                             "recorded a new signature")
+    del tc
+
+    # 4. the full-graph precompute with the straight run's parameters: the
+    # kernel at the shapes of its first chunk, then the pass itself
+    roots = np.arange(PRECOMPUTE_CHUNK, dtype=np.int64)
+    plan = plan_inference(ds.graph, roots, cfg.num_layers, cfg.fanout,
+                          sample_seed=999, batch_pad=PRECOMPUTE_CHUNK)
+    u = plan.fetch_ids.size
+    ws = np.zeros((next_bucket(int(u * 1.5)), ds.feature_dim), np.float32)
+    ws[:u] = store.take_global(plan.fetch_ids)
+    tot = time_gather_rows("ckpt", "precompute", torch.from_numpy(ws).cuda(),
+                           [torch.from_numpy(h).cuda() for h in plan.hop_idx])
+    log("ckpt", f"gather_rows, 4 hops of one {PRECOMPUTE_CHUNK}-root chunk: "
+                f"device {tot['ms']:.5f} ms (plain {tot['plain_ms']:.5f}, "
+                f"index_select {tot['library_ms']:.5f}, bound "
+                f"{tot['bound_ms']:.5f})")
+    del ws, plan
+    n = ds.num_vertices
+    step = ta.global_step
+    chunks = -(-n // PRECOMPUTE_CHUNK)
+    ga.reset_launches()
+    trace.clear()
+    trace.enable()
+    t0 = time.perf_counter()
+    try:
+        precompute_embeddings(ds.graph, store, ta.params, cfg,
+                              ckpt_dir=dirs["straight"], params_step=step,
+                              chunk=PRECOMPUTE_CHUNK)
+    finally:
+        trace.disable()
+    wall = time.perf_counter() - t0
+    launches["gnn_precompute"] = ga.launches["gather_rows"]
+    spans: dict = {}
+    for r in trace.records():
+        if r.kind == "X":
+            spans[r.name] = spans.get(r.name, 0) + r.dur_ns
+    trace.clear()
+    plan_ms = spans.get("serve.precompute.plan", 0) / 1e6 / chunks
+    fwd_ms = spans.get("serve.precompute.forward", 0) / 1e6 / chunks
+    log("ckpt", f"precompute of {n} vertices in {chunks} chunks of "
+                f"{PRECOMPUTE_CHUNK}: {wall:.2f} s, {n / wall:.0f} rows/s; "
+                f"per chunk host plan + gather {plan_ms:.3f} ms, upload + "
+                f"forward + logits back {fwd_ms:.3f} ms; table save "
+                f"{spans.get('ckpt.save', 0) / 1e6:.1f} ms; gather_rows "
+                f"launches {launches['gnn_precompute']} (want "
+                f"{chunks * layers})")
+    if launches["gnn_precompute"] != chunks * layers:
+        raise AssertionError(f"precompute launched gather_rows "
+                             f"{launches['gnn_precompute']} times, want "
+                             f"{chunks * layers}")
+    tab = load_embeddings(dirs["straight"], params_step=step,
+                          sample_seed=999)
+    sample = np.linspace(0, n - 1, 256).astype(np.int64)
+    params_cpu = copy.deepcopy(ta.params).cpu()
+    want = offline_logits(ds, store, cfg, params_cpu, sample)
+    got = tab.lookup(sample)
+    err = float(np.abs(got - want).max())
+    log("ckpt", f"table rows of {sample.size} vertices over the id range vs "
+                f"the CPU forward: max abs err {err} (tolerance {CPU_TOL}); "
+                f"table {tab.logits.shape} finite "
+                f"{bool(np.isfinite(tab.logits).all())}")
+    if got.shape != (sample.size, cfg.num_classes) \
+            or not np.isfinite(tab.logits).all() \
+            or not np.allclose(got, want, rtol=CPU_TOL, atol=CPU_TOL):
+        raise AssertionError(f"precomputed rows differ from the CPU forward:"
+                             f" max abs err {err}")
+    try:
+        load_embeddings(dirs["straight"], params_step=step + 1)
+    except ValueError as e:
+        log("ckpt", f"another params_step refused: {e}")
+    else:
+        raise AssertionError("a stale embedding snapshot was accepted")
+
+    # 5. serve from the checkpoint: hot vertices fresh, cold from the table
+    srv = GNNServer(graph=ds.graph, params=ta.params, cfg=cfg, store=store,
+                    max_batch=MAX_BATCH, cache_budget_bytes=CACHE_BYTES,
+                    ckpt_dir=dirs["straight"], mode="auto",
+                    params_step=step, device="cuda")
+    w = srv.warmup()
+    vertices = zipf_vertices(np.random.default_rng(seed + 2), n, requests)
+    ga.reset_launches()
+    fresh0, pre0 = srv.fresh_batches, srv.precomputed_hits
+    tickets, results = open_loop(srv, vertices, qps)
+    launches["gnn_serve_auto"] = ga.launches["gather_rows"]
+    st = srv.stats()
+    fresh_batches = srv.fresh_batches - fresh0
+    hits = srv.precomputed_hits - pre0
+    lat = np.array([1e3 * t.latency_s() for t in tickets])
+    wall = tickets[-1].t_done - tickets[0].t_submit
+    via_pre = sum(t.via == "precomputed" for t in tickets)
+    log("ckpt", f"auto mode, {len(tickets)} zipf(1.1) requests offered at "
+                f"{qps} req/s after a warmup of {w['traces']} traces: served "
+                f"at {len(tickets) / wall:.1f} req/s, latency p50 "
+                f"{np.percentile(lat, 50):.3f} ms p99 "
+                f"{np.percentile(lat, 99):.3f} ms; {via_pre} requests "
+                f"({100 * via_pre / len(tickets):.1f}%) answered from the "
+                f"table, {hits} table rows read, {fresh_batches} fresh "
+                f"micro-batches with {launches['gnn_serve_auto']} gather_rows"
+                f" launches; retraces since warmup "
+                f"{st['retraces_since_warmup']}, errors {st['errors']}")
+    if hits <= 0 or st["precomputed_hits"] <= 0:
+        raise AssertionError("auto mode answered nothing from the table")
+    if fresh_batches == 0 \
+            or launches["gnn_serve_auto"] < layers * fresh_batches:
+        raise AssertionError(f"the fresh path launched gather_rows "
+                             f"{launches['gnn_serve_auto']} times for "
+                             f"{fresh_batches} micro-batches")
+    if st["retraces_since_warmup"] != 0 or st["errors"] != 0:
+        raise AssertionError("auto serving retraced or failed")
+    check_answers(tickets, results, tab, ds, store, cfg, params_cpu, seed)
+    del srv, ta
+    torch.cuda.empty_cache()
+    shutil.rmtree(base, ignore_errors=True)
     return launches
 
 
@@ -987,6 +1352,8 @@ def main() -> int:
         by_path[name]["gnn_serve"] = n
     by_path["gather_rows"]["gnn_train"] = phase_train(ds, store, part, cfg,
                                                       args.seed)
+    by_path["gather_rows"].update(phase_ckpt(ds, store, part, cfg, args.seed,
+                                             args.requests, args.qps))
     del ds, store
     phase_rwkv6_wide(args.seed)
     by_path["linattn"]["llm_serve"] = phase_llm(args.seed)

@@ -57,6 +57,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.tree import tree_leaves
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.gnn.models import GNNConfig, gnn_forward, gnn_loss
@@ -77,18 +78,6 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
-
-
-def tree_leaves(tree) -> list:
-    """The arrays of a tree in ``jax.tree.leaves`` order (dicts by sorted
-    key, None skipped)."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
 
 
 def _dtype_name(x) -> str:
@@ -445,6 +434,86 @@ def upload(x, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+# Host comm boundary hook (repro_torch.resilience). In a multi-host
+# deployment each exchange is an RPC fan-out that can stall or drop; here
+# the host-side point where an iteration's exchanges are initiated is the
+# dispatch that stages their arguments. A fault or robustness layer
+# installs a callable here; it runs BEFORE the iteration's forward pass and
+# its in-place optimizer update (the port's stand-in for the reference's
+# buffer donation), so a raise from the hook is always safe to retry. None
+# (the default) costs one global read.
+_COMM_FAULT_HOOK: Optional[Callable] = None
+
+
+def set_comm_fault_hook(hook: Optional[Callable]) -> None:
+    """Install/remove the host comm-boundary hook (``hook(plan)``)."""
+    global _COMM_FAULT_HOOK
+    _COMM_FAULT_HOOK = hook
+
+
+# Dead-peer registry (repro_torch.membership). On a multi-host deployment
+# liveness comes from the RPC layer; in this single-process harness a death
+# is registered here — by the ``peer_death`` fault kind or a membership
+# test — and every later dispatch that would contact the fabric raises
+# PeerDeadError from the host staging boundary. The raise comes before any
+# update (safe to retry) and persists until revive_peer, so a guarded
+# caller's retries exhaust into a CommTimeout with the peer attributed —
+# the signal repro_torch.membership consumes.
+_DEAD_PEERS: set = set()
+
+
+class PeerDeadError(RuntimeError):
+    """An exchange addressed a peer registered as dead.
+
+    A typed transient for the retry guard (repro_torch.resilience.comm
+    retries it alongside TransientCommError): the *probe* decides
+    permanence, not the raise — a flapping peer that comes back mid-retry
+    is absorbed with no membership change."""
+
+    def __init__(self, msg: str, *, peer: int = -1):
+        super().__init__(msg)
+        self.site = "comm"
+        self.peer = int(peer)
+
+
+def kill_peer(shard: int) -> None:
+    """Register ``shard`` as dead; every later dispatch fails until
+    :func:`revive_peer`."""
+    _DEAD_PEERS.add(int(shard))
+
+
+def revive_peer(shard: int) -> None:
+    _DEAD_PEERS.discard(int(shard))
+
+
+def peer_is_dead(shard: int) -> bool:
+    return int(shard) in _DEAD_PEERS
+
+
+def dead_peers() -> frozenset:
+    return frozenset(_DEAD_PEERS)
+
+
+def comm_fault_point(plan) -> None:
+    """Run the comm-boundary hook for one iteration dispatch, before any
+    in-place update. Called by :func:`prepare_iteration_args` and the
+    Trainer's stacked dispatch.
+
+    The hook runs first (a scheduled ``peer_death`` fault registers the
+    kill here), then the dead-peer registry is consulted: a dispatch stages
+    exchanges with *every* peer, so any registered death fails the staging
+    with the peer attributed."""
+    hook = _COMM_FAULT_HOOK
+    if hook is not None:
+        hook(plan)
+    if _DEAD_PEERS:
+        peer = min(_DEAD_PEERS)
+        ei = getattr(plan, "epoch_it", (-1, -1))
+        raise PeerDeadError(
+            f"peer shard {peer} is dead at (epoch {ei[0]}, it {ei[1]}); "
+            "exchange fan-out cannot be staged", peer=peer)
+
+
 def block_until_ready(device: torch.device) -> None:
     """Wait until the work queued on ``device``'s current stream is done:
     a CUDA event recorded there and synchronized (on the CPU, work is
@@ -471,7 +540,8 @@ def empty_cache_table(num_shards: int, feature_dim: int,
     return tab
 
 
-def prepare_iteration_args(table_global, plan, cache=None, device=None):
+def prepare_iteration_args(table_global, plan, cache=None, device=None,
+                           fault_point: bool = True):
     """Shared argument prep for :func:`run_iteration` /
     :func:`run_train_step`: validates the table and cache against the plan
     and returns device-ready ``(table, cache, dev, denom)``.
@@ -480,7 +550,11 @@ def prepare_iteration_args(table_global, plan, cache=None, device=None):
     ``device`` (default ``cuda``). Fast path: a plan whose device args were
     committed by the pipeline uploader (``plan.committed``) skips the
     upload (:func:`plan_device_args`); an uncommitted plan has its indices
-    checked on the host here, then uploads."""
+    checked on the host here, then uploads. The comm fault point runs
+    first, before anything reaches the device, unless the caller ran it
+    already (``fault_point=False``)."""
+    if fault_point:
+        comm_fault_point(plan)
     if table_global is None:
         raise ValueError("table_global is required (streamed plans from a "
                          "tiered FeatureStore are not ported yet)")

@@ -4,10 +4,12 @@
 Synthetic products dataset → community partition → the compile-once
 Trainer (shape budget, plan prefetch, redistribution, pre-gathering,
 adaptive merging, the async pipeline) → AdamW with a cosine schedule →
-eval each epoch. Epoch 0 carries the first call of each new shape
-signature; epochs ≥ 1 run with none (the closing "compile-once" line).
-Checkpoints are not ported yet, so there is no ``--ckpt-dir`` or
-``--resume``.
+eval each epoch, with a crash-atomic checkpoint at each epoch boundary
+under ``--ckpt-dir`` (default: ``hopgnn_torch_ckpt`` in the system's temp
+directory). Epoch 0 carries the first call of each new shape signature;
+epochs ≥ 1 run with none (the closing "compile-once" line). ``--resume``
+continues from the newest checkpoint, and says "nothing to do" when it
+already covers every epoch.
 
 Presets:
   --preset smoke   a few seconds on a CPU (default)
@@ -15,11 +17,13 @@ Presets:
                    for the GPU
 
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --preset smoke \\
-        --device cpu
+        --device cpu [--ckpt-dir DIR] [--resume]
 """
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 
 import torch
 
@@ -44,6 +48,9 @@ def main(argv=None) -> None:
     ap.add_argument("--shards", type=int, default=4)
     ap.add_argument("--strategy", default="hopgnn",
                     choices=["hopgnn", "model_centric", "lo"])
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "hopgnn_torch_ckpt"))
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--no-pipeline", action="store_true",
                     help="per-iteration blocking loop instead of the async "
                          "fused pipeline")
@@ -77,14 +84,18 @@ def main(argv=None) -> None:
         graph=ds.graph, labels=ds.labels, part=part, owner=owner,
         local_idx=local_idx, table=table, cfg=cfg, optimizer=opt,
         params=params, strategy=args.strategy,
-        train_vertices=ds.train_vertices(),
+        train_vertices=ds.train_vertices(), ckpt_dir=args.ckpt_dir,
         pipeline=not args.no_pipeline, pipeline_stack=args.stack,
         device=args.device)
 
     tc0 = engine.trace_count()
     stats = trainer.fit(epochs=P["epochs"], iters_per_epoch=P["iters"],
                         batch_per_model=P["batch"] // args.shards,
-                        eval_every=1, log=print)
+                        eval_every=1, resume=args.resume, log=print)
+    if not stats:
+        print("nothing to do: checkpoint already covers every epoch "
+              f"(step {trainer.global_step})")
+        return
     first, rest = stats[0], stats[1:]
     if rest:
         print(f"compile-once: epoch 0 {first.time_s:.2f}s "
@@ -101,6 +112,7 @@ def main(argv=None) -> None:
                   f"{1000 * rest[-1].dispatch_s / P['iters']:.1f} ms/iter, "
                   f"{trainer._uploader.uploads} committed uploads, "
                   f"{trainer._uploader.shape_changes} shape changes")
+    print(f"done; checkpoints in {args.ckpt_dir}")
 
 
 if __name__ == "__main__":

@@ -188,7 +188,7 @@ def opt_state_from_jax(state, device=None):
     :class:`repro_torch.optim.AdamState`: the step as an int32 CPU scalar,
     the moments as float32 tensors on ``device`` (default ``cuda``) in
     :meth:`GNN.leaves` order. Values are copied exactly."""
-    from repro_torch.core.distributed import tree_leaves
+    from repro_torch.core.tree import tree_leaves
     from repro_torch.optim import AdamState
     device = resolve_device(device)
 

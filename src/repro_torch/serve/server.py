@@ -9,16 +9,20 @@ per-request critical path:
      micro-batch plus the tree rows fresh computes touch); fresh computes
      of frequently requested vertices then upload only their cache-miss
      rows.
-  2. **Fresh compute** — a dynamic micro-batch through ``plan_inference``
+  2. **Precomputed-embedding tier** (repro_torch.serve.embeddings) —
+     cold vertices are answered from the offline full-graph forward's
+     persisted logits table (``ckpt_dir``): no sampling, no gather, no
+     device dispatch.
+  3. **Fresh compute** — a dynamic micro-batch through ``plan_inference``
      → ``get_compiled_inference``: stateless sampling (``sample_seed=999``,
      the reference's eval seed), unique-row dedup against the cache index,
      pow2 ``ShapeBudget`` serve rungs, and on the device one ``gather_rows``
      kernel launch per hop followed by the GNN forward.
 
-The precomputed-embedding tier of the reference (``ckpt_dir``,
-``repro.serve.embeddings``) needs checkpoints and arrives with a later
-slice; passing ``ckpt_dir`` raises. So ``mode="auto"`` serves every
-request fresh, exactly as ``"fresh"`` does.
+``mode="auto"`` routes a request fresh when its vertex sits in the hot set
+(frequent vertices get current-params answers at cached-feature cost) and
+precomputed otherwise; ``"fresh"``/``"precomputed"`` force one path.
+Without ``ckpt_dir`` every request is fresh.
 
 Compile-once contract: :meth:`warmup` runs every serve rung once (and
 seeds each rung's fetch bucket with headroom); steady-state serving then
@@ -46,6 +50,7 @@ from repro_torch.device import resolve_device
 from repro_torch.features import FeatureStore
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import trace as _trace
+from repro_torch.serve.embeddings import load_embeddings
 from repro_torch.serve.loop import BatchingLoop, Ticket
 from repro_torch.train.budget import ShapeBudget, next_bucket
 
@@ -74,15 +79,9 @@ class GNNServer:
                  cache_refresh_every: int = 16,
                  cache_decay: float = 0.5,
                  ckpt_dir=None, mode: str = "auto",
+                 params_step: int = 0, allow_stale_embeddings: bool = False,
                  device=None, name: str = "serve"):
-        if ckpt_dir is not None:
-            raise NotImplementedError(
-                "the precomputed-embedding tier (ckpt_dir) needs the "
-                "checkpoint slice of the port, which has not landed yet")
-        if mode == "precomputed":
-            raise ValueError("mode='precomputed' needs ckpt_dir with an "
-                             "embedding snapshot")
-        if mode not in ("auto", "fresh"):
+        if mode not in ("auto", "fresh", "precomputed"):
             raise ValueError(f"unknown serve mode {mode!r}")
         want = resolve_device(device)
         self.device = next(params.parameters()).device
@@ -131,6 +130,17 @@ class GNNServer:
         self.cache_refresh_every = int(cache_refresh_every)
         self._cache_dev = None          # (c_max, d) slice, refreshed on install
 
+        # precomputed tier (stamped; stale snapshots are refused)
+        self.embeddings = None
+        if ckpt_dir is not None:
+            self.embeddings = load_embeddings(
+                ckpt_dir, params_step=params_step,
+                sample_seed=self.sample_seed,
+                allow_stale=allow_stale_embeddings)
+        if mode == "precomputed" and self.embeddings is None:
+            raise ValueError("mode='precomputed' needs ckpt_dir with an "
+                             "embedding snapshot")
+
         self._fn = get_compiled_inference(cfg)
         self._empty_cache = torch.from_numpy(
             np.zeros((0, d), store.dtype)).to(self.device)
@@ -140,6 +150,7 @@ class GNNServer:
         self._dispatches = 0
         self.fresh_batches = 0
         self.fresh_requests = 0
+        self.precomputed_hits = 0
         self.cache_hit_rows = 0
         self.fetch_rows = 0
         self._traces_at_warmup = infer_trace_count()
@@ -226,22 +237,48 @@ class GNNServer:
                 u, v = t.payload
                 vertices.extend((int(u), int(v)))
         vertices = np.unique(np.asarray(vertices, np.int64))
-        # request-frequency admission sees every root
+        pre_mask = self._precomputed_mask(vertices)
+        fresh = vertices[~pre_mask]
+        pre = vertices[pre_mask]
+        # request-frequency admission sees every root, whichever tier
+        # answers it — that is what promotes a warming vertex from the
+        # precomputed tier into the hot (fresh) set
         if self.policy is not None:
             self.policy.observe(0, vertices)
-        logits = dict(zip(vertices.tolist(), self._forward(vertices)))
+        logits = {}
+        if pre.size:
+            logits.update(zip(pre.tolist(), self.embeddings.lookup(pre)))
+            self.precomputed_hits += int(pre.size)
+            _metrics.inc(f"{self.name}.precomputed_hits", int(pre.size))
+        if fresh.size:
+            logits.update(zip(fresh.tolist(), self._forward(fresh)))
         self._dispatches += 1
         self._maybe_refresh_cache()
+        pre_set = set(pre.tolist())
         out = []
         for t in tickets:
             if isinstance(t.payload, (int, np.integer)):
-                t.via = "fresh"
+                t.via = ("precomputed" if int(t.payload) in pre_set
+                         else "fresh")
                 out.append(logits[int(t.payload)])
             else:
                 u, v = t.payload
                 t.via = "edge"
                 out.append(float(np.dot(logits[int(u)], logits[int(v)])))
         return out
+
+    def _precomputed_mask(self, vertices: np.ndarray) -> np.ndarray:
+        """Which requested vertices the precomputed tier answers."""
+        if self.embeddings is None or self.mode == "fresh":
+            return np.zeros(vertices.size, bool)
+        if self.mode == "precomputed":
+            return np.ones(vertices.size, bool)
+        # auto: hot vertices (feature row admitted to the serve cache) go
+        # fresh — current params at cached-feature cost; cold go precomputed
+        if self.cache is None:
+            return np.ones(vertices.size, bool)
+        hot, _ = self.cache.index.hit_split(0, vertices)
+        return ~hot
 
     def _forward(self, nodes: np.ndarray, record_stats: bool = True
                  ) -> np.ndarray:
@@ -297,6 +334,9 @@ class GNNServer:
     def _maybe_refresh_cache(self) -> None:
         if self.cache is None:
             return
+        # cadence counts *all* dispatches, not just fresh ones — a cold
+        # (all-precomputed) workload must still admit its frequent roots,
+        # or auto mode could never promote anything to the fresh tier
         if self._dispatches == 0 \
                 or self._dispatches % self.cache_refresh_every:
             return
@@ -314,6 +354,7 @@ class GNNServer:
         out = dict(self.loop.stats())
         out.update(fresh_batches=self.fresh_batches,
                    fresh_requests=self.fresh_requests,
+                   precomputed_hits=self.precomputed_hits,
                    cache_hit_rows=self.cache_hit_rows,
                    fetch_rows=self.fetch_rows,
                    cache_installs=(self.cache.installs

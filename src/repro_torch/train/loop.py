@@ -30,14 +30,32 @@ The port of ``repro.train.loop``:
   additionally takes the grads-then-update path. The parameters and
   moments are updated in place, so the Trainer copies caller-supplied
   initial parameters once and always continues from its own.
-* **Eval** — tree-block evaluation on features gathered back out of the
-  sharded table.
+* **Eval + checkpoint/resume** — epoch-boundary checkpoints of
+  (params, optimizer state, merge pattern, budget state) in the
+  reference's crash-atomic npz layout (:mod:`repro_torch.checkpoint`), and
+  tree-block evaluation on features gathered back out of the sharded
+  table.
+* **Resilience** (:mod:`repro_torch.resilience`; default ON, as in the
+  reference: ``resilience=None`` is the default policy) — an epoch-start
+  snapshot (cloned tensors: the update runs in place), supervised
+  background threads, the comm retry guard around every dispatch, the
+  stall deadline on plan futures, a NaN/Inf guard on each synced loss
+  window, and the degradation ladder (``uploader_off``,
+  ``pipeline_to_sync``, ``cache_off``). Every recovery replays the epoch
+  deterministically, so an absorbed fault leaves losses and parameters
+  bit-identical to the fault-free run.
+* **Membership** (:mod:`repro_torch.membership`, on with the default
+  policy) — plans are stamped with the world generation and refused when
+  it moves; a peer-attributed comm timeout is probed, and a confirmed
+  death recovers by ``rejoin`` (bit-identical resume from the shared
+  checkpoint) or by elastic shrink (``redistribute``/``adopt``).
 
 Entry points run on ``cuda`` unless ``device="cpu"`` is given. Not ported
 yet, each raising ``NotImplementedError`` that names its ROADMAP Queue 1
-item: checkpoints (``ckpt_dir``, ``resume``), resilience (and with it
-membership), a device ``mesh``, and a tiered FeatureStore (streamed
-training).
+item: a device ``mesh`` (item 8) and a tiered FeatureStore (streamed
+training, item 10) — and with the latter the ``readahead``/``store`` rungs
+of the ladder and the ``disk_corrupt`` fault kind, which corrupts the
+streamed store's backing tier.
 
 Typical use::
 
@@ -54,23 +72,37 @@ import dataclasses
 import os
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import TimeoutError as FuturesTimeout
+from concurrent.futures import wait as futures_wait
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import (latest_step, load_checkpoint,
+                                    save_checkpoint)
 from repro_torch.core import distributed as engine
 from repro_torch.core.merging import MergingController, fold_assignment
 from repro_torch.core.micrograph import hopgnn_assignment
 from repro_torch.core.strategies import IterationPlan, Strategy
+from repro_torch.core.tree import tree_clone
 from repro_torch.device import resolve_device
 from repro_torch.features import FeatureStore
 from repro_torch.graph.sampler import sample_tree_block
+from repro_torch.membership import (MembershipView, PeerProbe,
+                                    StaleGeneration, peer_of)
 from repro_torch.models.gnn.models import GNNConfig, gnn_accuracy, init_gnn
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import span as obs_span
 from repro_torch.optim import Optimizer, adamw
+from repro_torch.resilience import (BackgroundError,
+                                    CheckpointRollbackExhausted,
+                                    CommCounters, CommTimeout, NonFiniteLoss,
+                                    ResiliencePolicy, StallError,
+                                    ThreadSupervisor, resilient_call)
+from repro_torch.resilience import faults as _rfaults
+from repro_torch.resilience.faults import InjectedFault
 from repro_torch.train.budget import ShapeBudget, next_bucket
 from repro_torch.train.pipeline import (EpochRunResult, PlanUploader,
                                         run_pipelined_epoch, stack_committed)
@@ -103,6 +135,18 @@ class EpochStats:
     pipelined: bool = False     # this epoch ran the non-blocking fused loop
     dispatch_s: float = 0.0     # host time inside dispatch calls (pipelined
     #                             mode only)
+    # --- resilience (zeros when the policy is off) ---
+    faults_injected: int = 0    # FaultPlan firings during this epoch
+    comm_retries: int = 0       # transient exchange failures re-issued
+    comm_timeouts: int = 0      # exchanges that exhausted retries/deadline
+    bg_errors: int = 0          # background-thread failures recorded
+    epoch_attempts: int = 1     # 1 = clean; >1 = replays after recovery
+    rollbacks: int = 0          # NaN/Inf rollbacks to the epoch snapshot
+    degradations: tuple = ()    # ladder rungs taken while running this epoch
+    # --- membership (static world: generation 0, 0 recoveries) ---
+    membership_generation: int = 0   # world generation at epoch end
+    membership_recoveries: int = 0   # confirmed peer deaths recovered while
+    #                                  running this epoch (rejoin or shrink)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -132,6 +176,7 @@ class Trainer:
                  sample_seed_base: int = 0,
                  init_seed: int = 0,
                  ckpt_dir: Optional[str] = None,
+                 ckpt_keep: int = 3,
                  cache_policy: Optional[str] = None,
                  cache_budget_bytes: int = 0,
                  cache_prefetch: bool = True,
@@ -145,12 +190,6 @@ class Trainer:
         if mesh is not None:
             raise _not_ported("training over a device mesh",
                               "8, multi-GPU ShardComm over NCCL")
-        if ckpt_dir is not None:
-            raise _not_ported("checkpointing", "2, checkpoints")
-        if resilience not in (None, False):
-            if getattr(resilience, "membership", False):
-                raise _not_ported("membership", "4, membership")
-            raise _not_ported("resilience", "3, resilience")
         self.device = resolve_device(device)
         self.graph = graph
         self.labels = np.asarray(labels)
@@ -203,8 +242,11 @@ class Trainer:
         self.root_fn = root_fn
         self.root_seed = root_seed
         self.sample_seed_base = sample_seed_base
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_keep = ckpt_keep
         self.controller: Optional[MergingController] = None
         self.global_step = 0
+        self._resume_pattern: Optional[tuple] = None  # (steps, frozen, time)
         self._prefetch = prefetch
         # Planning pool contract: build_plan fans its per-(shard, step)
         # sampling and per-shard index translation out on this pool; it is
@@ -246,6 +288,30 @@ class Trainer:
                     cache_policy, graph=self.graph, owner=self.owner,
                     num_shards=self.num_shards)
                 self._cache_prefetcher = self._make_prefetcher()
+        # --- resilience (None/True -> the default policy, False -> off).
+        # The default policy is always on and cheap: one params/opt
+        # snapshot per epoch, a deque peek per dispatch, an isfinite on
+        # each synced loss window.
+        self.resilience = ResiliencePolicy.resolve(resilience)
+        self._supervisor = (ThreadSupervisor()
+                            if self.resilience is not None else None)
+        self._comm_counters = CommCounters()
+        self._inline_planning = False      # degraded: plans built inline
+        self._site_failures: dict = {}     # site -> failures seen this fit
+        self._rollbacks_total = 0
+        self.degradations_taken: list = []  # cumulative rung log
+        # --- membership: per-shard liveness plus the world generation
+        # every plan is stamped with (and refused under when it goes stale)
+        self.membership = (MembershipView(self.num_shards)
+                           if self.resilience is not None
+                           and self.resilience.membership else None)
+        self.membership_recoveries = 0     # confirmed deaths recovered
+        self._membership_ckpt_loaded = False  # the last recovery resumed
+        #                                       from the shared checkpoint
+        # one record per failed epoch attempt: the error, the rung taken,
+        # the attempt's wall time up to the failure (``lost_s``) and the
+        # recovery's own (``recover_s``)
+        self.recovery_log: list = []
 
     def _make_prefetcher(self):
         from repro_torch.cache.prefetch import EpochPrefetcher
@@ -287,6 +353,12 @@ class Trainer:
         if self.controller is None:
             self.controller = MergingController(base=base,
                                                 selector=self.selector)
+            if self._resume_pattern is not None:
+                steps, frozen, last_time = self._resume_pattern
+                if steps:
+                    self.controller.restore(steps, frozen,
+                                            last_time=last_time)
+                self._resume_pattern = None
         return self.controller.apply_to(base)
 
     def build_plan(self, epoch: int, it: int,
@@ -297,6 +369,11 @@ class Trainer:
     def _build_plan(self, epoch: int, it: int,
                     batch_per_model: int) -> IterationPlan:
         t0 = time.perf_counter()
+        # fault points: fire only under an installed FaultPlan, and thread
+        # death only when this thread is supervised as "prefetch" (the
+        # inline-planning fallback must not re-trip the same fault)
+        _rfaults.sleep_point("prefetch", epoch, it)
+        _rfaults.raise_if_thread("prefetch", epoch, it)
         roots = self._roots_for(epoch, it, batch_per_model)
         assignment = self._assignment_for(roots)
         cache_index = (self.cache_store.index
@@ -318,12 +395,29 @@ class Trainer:
             with self._cache_lock:
                 for s in range(self.num_shards):
                     self._cache_policy.observe(s, plan.remote_ids[s])
-        if self._uploader is not None:
+        plan.epoch_it = (epoch, it)   # provenance for the comm fault point
+        # world provenance: the membership generation this plan was built
+        # under; _dispatch refuses the plan once the generation moves on
+        plan.generation = (self.membership.generation
+                           if self.membership is not None else -1)
+        uploader = self._uploader
+        if uploader is not None:
             # async pipeline: commit the upload here, on the prefetch
-            # thread, so plan i+1's transfer overlaps plan i's execution
+            # thread, so plan i+1's transfer overlaps plan i's execution.
+            # The commit runs under the "uploader" site so an injected
+            # uploader death is told apart from a planner death (they
+            # degrade differently: uploader_off vs pipeline_to_sync).
             with obs_span("upload.commit", track="uploader",
                           epoch=epoch, it=it):
-                self._uploader.commit(plan)
+                if _rfaults.current_site.get() is not None:
+                    tok = _rfaults.current_site.set("uploader")
+                    try:
+                        _rfaults.raise_if_thread("uploader", epoch, it)
+                        uploader.commit(plan)
+                    finally:
+                        _rfaults.current_site.reset(tok)
+                else:
+                    uploader.commit(plan)
         with self._plan_time_lock:
             self._plan_time_acc += time.perf_counter() - t0
             self._plans_built_acc += 1
@@ -384,6 +478,8 @@ class Trainer:
         """Cache-thread job: predict the epoch's requests (deterministic
         sampler), select the cached set, gather its rows."""
         with obs_span("cache.forecast", epoch=epoch):
+            _rfaults.sleep_point("cache", epoch, -1)
+            _rfaults.raise_if_thread("cache", epoch, -1)
             hot = self._cache_prefetcher.epoch_requests(epoch, iters)
             with self._cache_lock:
                 sel = [self._cache_policy.select(s, self.cache_rows,
@@ -392,8 +488,9 @@ class Trainer:
             rows = [self._features_of(ids) for ids in sel]
             return sel, rows
 
-    def _cache_epoch_begin(self, epoch: int, epochs: int, iters: int,
-                           batch_per_model: int, cache_exec) -> float:
+    def _cache_epoch_begin(self, epoch: int, first_epoch: int, epochs: int,
+                           iters: int, batch_per_model: int,
+                           cache_exec) -> float:
         """Refresh the store at the epoch boundary (this epoch's plans are
         built only after this returns) and schedule the next epoch's
         prefetch. Returns the *blocking* refresh seconds."""
@@ -406,23 +503,32 @@ class Trainer:
                 ids, rows = self._cache_fut.result()
                 self._cache_fut = None
                 self.cache_store.install(ids, rows)
-            elif epoch == 0 and self._cache_policy.static:
+            elif epoch == first_epoch and self._cache_policy.static:
                 # degree policy: one static selection, installed before the
                 # first plan and never refreshed
                 self._cache_select_install()
             elif not self._cache_policy.static and cache_exec is None \
-                    and epoch > 0:
+                    and epoch > first_epoch:
                 # trailing LFU (prefetch off): select from frequencies
                 # observed in earlier epochs' plans
                 self._cache_select_install()
             if cache_exec is not None and not self._cache_policy.static \
                     and epoch + 1 < epochs:
-                self._cache_fut = cache_exec.submit(self._cache_compute,
-                                                    epoch + 1, iters)
+                self._cache_fut = self._submit_site(
+                    cache_exec, "cache", self._cache_compute, epoch + 1,
+                    iters)
             # upload now, so it lands in cache_refresh_s and not inside the
             # first (steady-timed) step of the epoch
             self.cache_store.device_table
             return time.perf_counter() - t0
+
+    def _submit_site(self, exec_, site: str, fn, *args):
+        """Submit a background job under supervision (site and (epoch, it)
+        context recorded at raise time; see repro_torch.resilience)."""
+        if self._supervisor is None:
+            return exec_.submit(fn, *args)
+        return self._supervisor.submit(exec_.submit, site, fn, *args,
+                                       epoch=args[0] if args else -1, it=-1)
 
     # ------------------------------------------------------------------
     # Device stepping
@@ -455,36 +561,45 @@ class Trainer:
         self.global_step += 1
         return loss
 
-    def _dispatch_fused(self, plan: IterationPlan):
+    def _dispatch_fused(self, plan: IterationPlan, fault_point: bool = True):
         """One fused call: iteration + optimizer update. Returns the
-        *device* loss — no host sync happens here."""
+        *device* loss — no host sync happens here. ``fault_point=False``
+        when the caller already ran the plan's comm fault point."""
         cache_tab = self._cache_table_for(plan)
         fn = engine.get_compiled_train_step(
             self.cfg, plan.pregather, self.optimizer,
             fold_returns=engine.resolve_fold_returns(plan,
                                                      self.fold_returns))
         table, cache_tab, dev, denom = engine.prepare_iteration_args(
-            self.table, plan, cache_tab)
+            self.table, plan, cache_tab, fault_point=fault_point)
         self.params, self.opt_state, loss = fn(
             self.params, self.opt_state, table, cache_tab, dev, denom)
         self.global_step += 1
-        return loss
+        return self._maybe_poison([plan], loss)
 
     def _dispatch_stacked(self, plans: Sequence[IterationPlan]):
         """One call covering ``len(plans)`` same-bucket iterations
         (pipeline_stack > 1). Returns the (K,) device losses."""
         p0 = plans[0]
+        split = False
         for p in plans[1:]:
             if (p.pregather != p0.pregather
                     or p.cache_version != p0.cache_version
                     or p.num_steps != p0.num_steps):
                 raise ValueError("stacked plans must share mode, cache "
                                  "version, and merge pattern")
-            if (p.batch_pad, p.r_max, p.c_max) != \
-                    (p0.batch_pad, p0.r_max, p0.c_max):
-                # a mid-epoch budget re-bucket split the group's shapes:
-                # dispatch one by one (one new signature, as unstacked)
-                return torch.stack([self._dispatch_fused(q) for q in plans])
+            split |= ((p.batch_pad, p.r_max, p.c_max)
+                      != (p0.batch_pad, p0.r_max, p0.c_max))
+        # the host comm boundary of every plan in the group, before any
+        # in-place update: the retry guard reruns the whole group, so a
+        # fault on a later plan must not find an earlier one applied
+        for p in plans:
+            engine.comm_fault_point(p)
+        if split:
+            # a mid-epoch budget re-bucket split the group's shapes:
+            # dispatch one by one (one new signature, as unstacked)
+            return torch.stack([self._dispatch_fused(q, fault_point=False)
+                                for q in plans])
         cache_tab = self._cache_table_for(p0)
         fn = engine.get_compiled_train_step(
             self.cfg, p0.pregather, self.optimizer,
@@ -495,15 +610,373 @@ class Trainer:
             self.params, self.opt_state, self.table, cache_tab, devs,
             denoms)
         self.global_step += len(plans)
-        return losses
+        return self._maybe_poison(plans, losses)
 
-    def _dispatch(self, plans: Sequence[IterationPlan]):
-        """The dispatch both epoch loops use."""
+    # ------------------------------------------------------------------
+    # Resilience plumbing (repro_torch.resilience)
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def _maybe_poison(self, plans, loss):
+        """nan_loss fault point: poison this step's loss AND the live
+        parameters in place (numerical divergence — recovery needs the
+        rollback, not just dropping one loss sample). No-op without an
+        active plan."""
+        if _rfaults.active_plan() is None:
+            return loss
+        for p in plans:
+            ei = getattr(p, "epoch_it", None)
+            if ei is None or not _rfaults.take("nan_loss", ei[0], ei[1]):
+                continue
+            for leaf in self.params.leaves():
+                if leaf.is_floating_point():
+                    leaf.mul_(float("nan"))
+            loss = loss * float("nan")
+        return loss
+
+    def _dispatch(self, plans: Sequence[IterationPlan], epoch: int = -1,
+                  it: int = -1):
+        """Guarded dispatch used by both epoch loops: refuse a plan of an
+        older world, surface any pending background error (the "next
+        dispatch boundary" contract), then run the dispatch under the comm
+        retry guard. Transient comm faults fire during argument staging,
+        BEFORE the in-place update (a stacked group runs every plan's fault
+        point first), so a retry never applies a step twice."""
+        if self.membership is not None:
+            for p in plans:
+                self.membership.check_generation(
+                    getattr(p, "generation", -1), epoch=epoch, it=it)
+        if self._supervisor is not None:
+            self._supervisor.check()
         if len(plans) > 1:
-            return self._dispatch_stacked(plans)
-        if self.fused:
-            return self._dispatch_fused(plans[0])
-        return self.train_step(plans[0])
+            fn = lambda: self._dispatch_stacked(plans)  # noqa: E731
+        elif self.fused:
+            fn = lambda: self._dispatch_fused(plans[0])  # noqa: E731
+        else:
+            fn = lambda: self.train_step(plans[0])  # noqa: E731
+        if self.resilience is None:
+            return fn()
+        return resilient_call(fn, policy=self.resilience.retry,
+                              counters=self._comm_counters,
+                              epoch=epoch, it=it)
+
+    def _abandon(self, futures, exc: BaseException) -> None:
+        """An epoch attempt failed with plan builds in flight: cancel the
+        ones not started and wait for a running one (up to the stall
+        deadline; not after a stall, whose build is the one wedged). So no
+        build of the abandoned attempt still commits an upload or records
+        an error while the Trainer recovers, and a world change never
+        races a build of the old world. The replay rebuilds every plan."""
+        running = [f for f in futures
+                   if isinstance(f, Future) and not f.cancel()]
+        if running and not isinstance(exc, StallError):
+            policy = self.resilience
+            futures_wait(running, timeout=None if policy is None
+                         else policy.stall_deadline_s)
+
+    def _plan_result(self, fut, epoch: int, it: int):
+        """Wait for a plan future under the stall deadline — a wedged
+        prefetch thread becomes a StallError instead of hanging fit().
+        The wait is on the future alone, never on the device."""
+        policy = self.resilience
+        if policy is None or policy.stall_deadline_s is None:
+            return fut.result()
+        try:
+            return fut.result(timeout=policy.stall_deadline_s)
+        except (TimeoutError, FuturesTimeout):
+            raise StallError("prefetch", epoch, it,
+                             policy.stall_deadline_s) from None
+
+    def _check_finite(self, loss, epoch: int, it: int) -> None:
+        """NaN/Inf guard on a synced loss window (a device tensor is read
+        back here, after the window's sync; floats pass through)."""
+        policy = self.resilience
+        if policy is None or not policy.guard_nonfinite:
+            return
+        if isinstance(loss, torch.Tensor):
+            loss = loss.detach().cpu().numpy()
+        v = np.asarray(loss, np.float64).ravel()
+        if not np.all(np.isfinite(v)):
+            raise NonFiniteLoss(epoch, it, float(v[~np.isfinite(v)][0]))
+
+    def _snapshot_state(self) -> dict:
+        """Epoch-start in-memory snapshot for rollback and replay: clones
+        of every tensor, since the update overwrites the live ones in
+        place (the int32 step included)."""
+        return {"params": [t.detach().clone() for t in self.params.leaves()],
+                "opt": tree_clone(self.opt_state),
+                "step": self.global_step}
+
+    @torch.no_grad()
+    def _restore_state(self, snap: dict) -> None:
+        """Copy the snapshot back into the live tensors — copied again, so
+        the snapshot survives a second rollback."""
+        for dst, src in zip(self.params.leaves(), snap["params"]):
+            dst.copy_(src)
+        self.opt_state = tree_clone(snap["opt"])
+        self.global_step = snap["step"]
+
+    def _degrade(self, site: Optional[str]) -> Optional[str]:
+        """Take one degradation-ladder rung for a failing site. Every rung
+        lands on a mode that is bit-identical to the one it leaves (the
+        pipelined and synchronous loops run the same operations in the
+        same order; a cache hit reads the row a fetch would) — recovery
+        costs throughput, never numerics. (The streamed store's
+        ``readahead``/``store`` rung arrives with streamed training.)"""
+        if site == "uploader" and self._uploader is not None:
+            # plans stop committing; dispatch uploads them inline
+            self._uploader = None
+            return "uploader_off"
+        if site in ("prefetch", "uploader", "comm"):
+            if self.pipeline or not self._inline_planning:
+                self.pipeline = False
+                self._inline_planning = True
+                self._uploader = None
+                return "pipeline_to_sync"
+            return None
+        if site == "cache":
+            if self.cache_store is not None:
+                self.cache_store = None
+                self._cache_policy = None
+                self._cache_fut = None
+                return "cache_off"
+            return None
+        return None
+
+    def _recover(self, e: BaseException, epoch: int) -> Optional[str]:
+        """Decide the recovery action for a failed epoch attempt. First
+        failure of a site replays in-mode (transients and once-faults clear
+        on replay); a repeat failure takes the site's ladder rung. NaN/Inf
+        always means rollback and replay, bounded by ``max_rollbacks``.
+        Before either, the uploader's side stream is drained: the
+        abandoned attempt may still be copying into buffers the replay's
+        plans reuse."""
+        policy = self.resilience
+        site = getattr(e, "site", None)
+        if isinstance(e, BackgroundError):
+            self._supervisor.mark_delivered(e)
+            site = getattr(e.__cause__, "site", site)
+        self._supervisor.drain()
+        if self._uploader is not None:
+            self._uploader.drain()
+        # abandon the in-flight epoch-boundary future: the replay
+        # recomputes it deterministically at its own boundary
+        self._cache_fut = None
+        # membership: a peer-attributed failure goes through detection
+        # first — a confirmed death is a world change, not a site failure
+        if self.membership is not None and policy.membership:
+            peer = peer_of(e)
+            if peer >= 0 and self.membership.is_alive(peer):
+                rung = self._membership_recover(peer, epoch)
+                if rung is not None:
+                    self.degradations_taken.append(rung)
+                    return rung
+                # the probe found the peer alive (a flap): suspicion is
+                # cleared with zero membership trace, and the failure falls
+                # through to the ordinary comm site accounting below
+        if isinstance(e, NonFiniteLoss):
+            self._rollbacks_total += 1
+            if self._rollbacks_total > policy.max_rollbacks:
+                raise CheckpointRollbackExhausted(
+                    f"non-finite loss persisted across "
+                    f"{policy.max_rollbacks} rollback+replay attempts at "
+                    f"epoch {epoch} — genuine divergence") from e
+            return "rollback_replay"
+        n = self._site_failures.get(site, 0) + 1
+        self._site_failures[site] = n
+        if n >= 2 and policy.degrade:
+            rung = self._degrade(site)
+            if rung is not None:
+                self.degradations_taken.append(rung)
+            return rung
+        return None
+
+    # ------------------------------------------------------------------
+    # Elastic membership (repro_torch.membership)
+    # ------------------------------------------------------------------
+
+    def _membership_recover(self, peer: int, epoch: int) -> Optional[str]:
+        """Two-phase recovery for a peer-attributed failure: suspect, then
+        a bounded liveness probe. A peer that answers any probe was a flap
+        — the suspicion is cleared and ``None`` returned (the caller
+        replays in-mode, zero numerical trace). A confirmed death rebuilds
+        the world per ``policy.membership_mode`` and resumes from the
+        shared crash-atomic checkpoint; returns ``membership_<mode>``."""
+        policy = self.resilience
+        view = self.membership
+        view.mark_suspect(peer, epoch=epoch)
+        with obs_span("membership.detect", peer=peer, epoch=epoch):
+            pr = PeerProbe(attempts=policy.probe_attempts,
+                           backoff_s=policy.probe_backoff_s).confirm(peer)
+        if pr.alive:
+            view.clear_suspect(peer)
+            return None
+        view.confirm_dead(peer, epoch=epoch)
+        mode = policy.membership_mode
+        with obs_span("membership.rebuild", peer=peer, mode=mode,
+                      epoch=epoch):
+            if mode == "rejoin":
+                # a replacement worker takes the dead rank: the partition
+                # maps are unchanged and the rank's feature rows come back
+                # from the authoritative source, so the world is the old
+                # world under a fresh generation
+                engine.revive_peer(peer)
+                view.rejoin(peer, epoch=epoch)
+            else:
+                self._membership_shrink(peer, epoch, mode)
+        with obs_span("membership.resume", peer=peer, mode=mode,
+                      epoch=epoch):
+            self._membership_ckpt_loaded = self._resume_shared_checkpoint()
+        self.membership_recoveries += 1
+        obs_metrics.inc("membership.recoveries")
+        return f"membership_{mode}"
+
+    def _membership_shrink(self, dead: int, epoch: int, mode: str) -> None:
+        """Elastic re-ownership at world size P-1: survivors re-own the
+        dead shard's vertices and every world-shaped structure is rebuilt
+        against the new maps — the feature table (re-uploaded), the cache
+        store, the epoch prefetcher and the uploader (``_recover`` drained
+        its side stream). The ``(N, 0, d)`` empty cache is keyed by N in the
+        engine, so the new world gets its own; the ShapeBudget's buckets
+        are keyed by merge pattern, and a new world's plans re-bucket when
+        they outgrow them. Numerics legitimately change (other shard
+        batches, other reduction groups), so correctness is held to a loss
+        tolerance against a fresh run at the same world size."""
+        from repro_torch.membership import rebuild_world
+        wr = rebuild_world(self.part, dead, self.num_shards, mode=mode)
+        # the dead rank leaves the world entirely; its registry entry must
+        # not leak into the compacted id space
+        engine.revive_peer(dead)
+        self.part, self.owner = wr.part, wr.owner
+        self.local_idx = wr.local_idx
+        self.store = self.store.reshard(wr.part, wr.num_shards)
+        self.table = engine.upload(self.store.as_dense(), self.device)
+        # merge controller: the base rotation assignment is world-shaped;
+        # the §5.3 examination restarts against the new world
+        self.controller = None
+        self._resume_pattern = None
+        # cache layer: rebuilt cold against the new owner map (the same
+        # row budget per shard)
+        if self.cache_store is not None:
+            from repro_torch.cache import CacheStore, make_policy
+            self.cache_store = CacheStore(
+                self.num_shards, self.store.feature_dim,
+                c_max=next_bucket(self.cache_rows), dtype=self.store.dtype,
+                device=self.device)
+            self._cache_policy = make_policy(
+                self.cache_policy_name, graph=self.graph, owner=self.owner,
+                num_shards=self.num_shards)
+        self._cache_fut = None
+        self._cache_prefetcher = (self._make_prefetcher()
+                                  if self.cache_store is not None else None)
+        if self._uploader is not None:
+            self._uploader = PlanUploader(budget=self.budget,
+                                          device=self.device,
+                                          view=self.membership)
+        self.membership.shrink(dead, epoch=epoch)
+
+    def _resume_shared_checkpoint(self) -> bool:
+        """Reload params and optimizer state from the shared crash-atomic
+        checkpoint — the survivors' common restore point. False when no
+        checkpoint exists yet; the epoch-start snapshot then serves
+        instead (identical to the last checkpoint whenever one exists,
+        because checkpoints are written at the epoch boundaries the
+        snapshot is taken at)."""
+        if not self.ckpt_dir or latest_step(self.ckpt_dir) is None:
+            return False
+        tree, step, _extra = load_checkpoint(
+            self.ckpt_dir, {"params": self.params, "opt": self.opt_state})
+        self.params = tree["params"]
+        self.opt_state = tree["opt"]
+        self.global_step = step
+        return True
+
+    def _attempt_epoch(self, epoch: int, start_epoch: int, epochs: int,
+                       iters: int, batch_per_model: int, cache_exec,
+                       submit):
+        """One try at one epoch: the boundary work, the iteration loop,
+        then the NaN/Inf guard over the epoch's losses."""
+        if _rfaults.take("disk_corrupt", epoch):
+            raise _not_ported("the disk_corrupt fault (it corrupts the "
+                              "streamed store's backing tier)",
+                              "10, streamed training")
+        refresh_s = self._cache_epoch_begin(
+            epoch, start_epoch, epochs, iters, batch_per_model, cache_exec)
+        if self.pipeline:
+            res = run_pipelined_epoch(
+                self, epoch, iters, batch_per_model, submit,
+                stack=self.pipeline_stack,
+                loss_sync_iters=self.loss_sync_iters)
+        else:
+            res = self._epoch_sync(epoch, iters, batch_per_model, submit)
+        self._check_finite(res.losses, epoch, iters - 1)
+        return res, refresh_s
+
+    _RECOVERABLE = (BackgroundError, StallError, CommTimeout, NonFiniteLoss,
+                    InjectedFault, StaleGeneration)
+
+    def _epoch_with_recovery(self, epoch: int, start_epoch: int,
+                             epochs: int, iters: int, batch_per_model: int,
+                             cache_exec, submit):
+        """The epoch attempt loop: snapshot → attempt → on a recoverable
+        failure restore + recover (replay or degrade) → re-attempt, up to
+        ``max_epoch_attempts``. Determinism makes every replay exact: the
+        same (epoch, it, seed) plans rebuild, so an absorbed fault leaves
+        losses and parameters bit-identical to a fault-free run."""
+        if self.resilience is None:
+            res, rf = self._attempt_epoch(epoch, start_epoch, epochs, iters,
+                                          batch_per_model, cache_exec,
+                                          submit)
+            return res, rf, {}
+        self._comm_counters.reset()
+        bg0 = self._supervisor.errors_recorded
+        fp = _rfaults.active_plan()
+        f0 = fp.fired_count() if fp is not None else 0
+        rb0 = self._rollbacks_total
+        mr0 = self.membership_recoveries
+        snap = self._snapshot_state()
+        attempts = 0
+        rungs: list = []
+        while True:
+            attempts += 1
+            t_attempt = time.perf_counter()
+            try:
+                res, rf = self._attempt_epoch(
+                    epoch, start_epoch, epochs, iters, batch_per_model,
+                    cache_exec, submit)
+                break
+            except self._RECOVERABLE as e:
+                if attempts >= self.resilience.max_epoch_attempts:
+                    raise
+                t0 = time.perf_counter()
+                lost_s = t0 - t_attempt
+                rung = self._recover(e, epoch)
+                if rung is not None:
+                    rungs.append(rung)
+                if self._membership_ckpt_loaded:
+                    # membership resumed from the shared checkpoint (the
+                    # epoch-start state at every epoch boundary); the old
+                    # snapshot may belong to a pre-shrink world — re-take
+                    self._membership_ckpt_loaded = False
+                    snap = self._snapshot_state()
+                else:
+                    self._restore_state(snap)
+                self.recovery_log.append(dict(
+                    epoch=epoch, attempt=attempts, error=type(e).__name__,
+                    rung=rung, lost_s=lost_s,
+                    recover_s=time.perf_counter() - t0))
+        fp = _rfaults.active_plan()
+        meta = {"epoch_attempts": attempts,
+                "rollbacks": self._rollbacks_total - rb0,
+                "degradations": tuple(rungs),
+                "faults_injected":
+                    (fp.fired_count() if fp is not None else 0) - f0,
+                "comm_retries": self._comm_counters.retries,
+                "comm_timeouts": self._comm_counters.timeouts,
+                "bg_errors": self._supervisor.errors_recorded - bg0,
+                "membership_recoveries":
+                    self.membership_recoveries - mr0}
+        return res, rf, meta
 
     # ------------------------------------------------------------------
     # Epoch loop
@@ -519,24 +992,29 @@ class Trainer:
         traced: list[bool] = []
         losses: list[float] = []
         remote, num_steps, cache_hits = 0, 0, 0
-        for it in range(iters):
-            with obs_span("plan.wait", epoch=epoch, it=it):
-                plan = fut.result()
-            if it + 1 < iters:
-                # double-buffer: plan i+1 builds while i executes
-                fut = submit(self.build_plan, epoch, it + 1,
-                             batch_per_model)
-            tc0 = engine.trace_count()
-            t0 = time.perf_counter()
-            with obs_span("dispatch", epoch=epoch, it=it):
-                loss = self._dispatch([plan])
-            with obs_span("loss.sync", epoch=epoch, it=it):
-                losses.append(float(loss))   # waits for the device
-            iter_times.append(time.perf_counter() - t0)
-            traced.append(engine.trace_count() > tc0)
-            remote += plan.remote_rows_exact
-            cache_hits += plan.cache_hit_rows
-            num_steps = plan.num_steps
+        try:
+            for it in range(iters):
+                with obs_span("plan.wait", epoch=epoch, it=it):
+                    plan = self._plan_result(fut, epoch, it)
+                if it + 1 < iters:
+                    # double-buffer: plan i+1 builds while i executes
+                    fut = submit(self.build_plan, epoch, it + 1,
+                                 batch_per_model)
+                tc0 = engine.trace_count()
+                t0 = time.perf_counter()
+                with obs_span("dispatch", epoch=epoch, it=it):
+                    loss = self._dispatch([plan], epoch, it)
+                self._check_finite(loss, epoch, it)
+                with obs_span("loss.sync", epoch=epoch, it=it):
+                    losses.append(float(loss))   # waits for the device
+                iter_times.append(time.perf_counter() - t0)
+                traced.append(engine.trace_count() > tc0)
+                remote += plan.remote_rows_exact
+                cache_hits += plan.cache_hit_rows
+                num_steps = plan.num_steps
+        except BaseException as e:
+            self._abandon([fut], e)
+            raise
         steady = [t for t, tr in zip(iter_times, traced) if not tr]
         return EpochRunResult(
             losses=losses, wall_s=time.perf_counter() - t_epoch,
@@ -558,17 +1036,33 @@ class Trainer:
         from the synced window after the last trace (see
         repro_torch.train.pipeline). If no trace-free sample exists the
         epoch is marked ``compile_free=False`` and is NOT recorded with the
-        controller."""
-        if resume:
-            raise _not_ported("resume", "2, checkpoints")
+        controller.
+
+        ``resume=True`` continues from the newest durable checkpoint in
+        ``ckpt_dir`` (parameters, optimizer state, merge pattern and
+        budget state) at the epoch after it; when the checkpoint already
+        covers every epoch the result is empty."""
+        start_epoch = self._maybe_resume() if resume else 0
         stats: list[EpochStats] = []
         pool = (ThreadPoolExecutor(max_workers=1,
                                    thread_name_prefix="prefetch")
                 if self._prefetch else None)
-        submit = pool.submit if pool is not None else self._run_inline
+        if self._supervisor is None or pool is None:
+            submit = pool.submit if pool is not None else self._run_inline
+        else:
+            def submit(fn, *args):
+                # degraded rung: plans build inline on the loop thread
+                # (synchronous, unsupervised — failures raise in place)
+                if self._inline_planning:
+                    return self._run_inline(fn, *args)
+                return self._supervisor.submit(
+                    pool.submit, "prefetch", fn, *args,
+                    epoch=args[0] if args else -1,
+                    it=args[1] if len(args) > 1 else -1)
         if self.pipeline and self._uploader is None:
             self._uploader = PlanUploader(budget=self.budget,
-                                          device=self.device)
+                                          device=self.device,
+                                          view=self.membership)
         # the cache refresh computation gets its own thread: it must not
         # block the plan double-buffer (and vice versa)
         cache_exec = (ThreadPoolExecutor(max_workers=1,
@@ -576,18 +1070,10 @@ class Trainer:
                       if (self.cache_enabled and self.cache_prefetch
                           and not self._cache_policy.static) else None)
         try:
-            for epoch in range(epochs):
-                refresh_s = self._cache_epoch_begin(
-                    epoch, epochs, iters_per_epoch, batch_per_model,
-                    cache_exec)
-                if self.pipeline:
-                    res = run_pipelined_epoch(
-                        self, epoch, iters_per_epoch, batch_per_model,
-                        submit, stack=self.pipeline_stack,
-                        loss_sync_iters=self.loss_sync_iters)
-                else:
-                    res = self._epoch_sync(epoch, iters_per_epoch,
-                                           batch_per_model, submit)
+            for epoch in range(start_epoch, epochs):
+                res, refresh_s, rmeta = self._epoch_with_recovery(
+                    epoch, start_epoch, epochs, iters_per_epoch,
+                    batch_per_model, cache_exec, submit)
                 compile_free = res.steady_iter_s is not None
                 steady_iter = (res.steady_iter_s if compile_free
                                else res.wall_s / iters_per_epoch)
@@ -611,7 +1097,19 @@ class Trainer:
                     / max(res.cache_hit_rows + res.remote_rows, 1),
                     cache_bytes_saved=res.cache_hit_rows * row_bytes,
                     cache_refresh_s=refresh_s, pipelined=self.pipeline,
-                    dispatch_s=res.dispatch_s)
+                    dispatch_s=res.dispatch_s,
+                    faults_injected=rmeta.get("faults_injected", 0),
+                    comm_retries=rmeta.get("comm_retries", 0),
+                    comm_timeouts=rmeta.get("comm_timeouts", 0),
+                    bg_errors=rmeta.get("bg_errors", 0),
+                    epoch_attempts=rmeta.get("epoch_attempts", 1),
+                    rollbacks=rmeta.get("rollbacks", 0),
+                    degradations=rmeta.get("degradations", ()),
+                    membership_generation=(self.membership.generation
+                                           if self.membership is not None
+                                           else 0),
+                    membership_recoveries=rmeta.get(
+                        "membership_recoveries", 0))
                 stats.append(st)
                 obs_metrics.publish_epoch_stats(st)
                 if log is not None:
@@ -624,8 +1122,14 @@ class Trainer:
                            f" refresh {st.cache_refresh_s:.2f}s"
                            if self.cache_enabled else "")
                         + ("" if st.compile_free else " (all-compile)")
+                        + (f" attempts {st.epoch_attempts}"
+                           + (f" degraded [{','.join(st.degradations)}]"
+                              if st.degradations else "")
+                           if st.epoch_attempts > 1 or st.degradations
+                           else "")
                         + (f" acc {100 * acc:.1f}%" if acc is not None
                            else ""))
+                self._maybe_checkpoint(epoch, st)
         finally:
             if pool is not None:
                 pool.shutdown(wait=False, cancel_futures=True)
@@ -666,3 +1170,50 @@ class Trainer:
                  for ids in blk.hops]
         labels = engine.upload(self.labels[nodes], self.device)
         return float(gnn_accuracy(self.params, self.cfg, feats, labels))
+
+    # ------------------------------------------------------------------
+    # Checkpoint / resume
+    # ------------------------------------------------------------------
+
+    def _maybe_checkpoint(self, epoch: int, st: EpochStats) -> None:
+        if not self.ckpt_dir:
+            return
+        extra = {"epoch": epoch, "loss": st.loss,
+                 "merge_steps": (self.controller.pattern_steps
+                                 if self.controller else 0),
+                 "merge_frozen": (bool(self.controller.frozen)
+                                  if self.controller else False),
+                 "merge_last_time": (self.controller.last_epoch_time
+                                     if self.controller else None),
+                 # bucket state rides along so a resumed run plans straight
+                 # into the original run's shapes — no probe, no new
+                 # signature in its first epoch
+                 "budget_state": self.budget.state_dict()}
+        save_checkpoint(self.ckpt_dir, self.global_step,
+                        {"params": self.params, "opt": self.opt_state},
+                        extra=extra, keep=self.ckpt_keep)
+
+    def _maybe_resume(self) -> int:
+        if not self.ckpt_dir or latest_step(self.ckpt_dir) is None:
+            return 0
+        try:
+            tree, step, extra = load_checkpoint(
+                self.ckpt_dir, {"params": self.params, "opt": self.opt_state})
+            self.params = tree["params"]
+            self.opt_state = tree["opt"]
+        except ValueError:
+            # older checkpoints stored bare params (no optimizer state);
+            # restore what exists and re-init the optimizer
+            params, step, extra = load_checkpoint(self.ckpt_dir, self.params)
+            self.params = params
+            self.opt_state = self.optimizer.init(self.params)
+        self.global_step = step
+        bs = extra.get("budget_state")
+        if bs:
+            self.budget.load_state(bs)
+        lt = extra.get("merge_last_time")
+        self._resume_pattern = (int(extra.get("merge_steps", 0)),
+                                bool(extra.get("merge_frozen", False)),
+                                None if lt is None else float(lt))
+        return int(extra.get("epoch", -1)) + 1
+

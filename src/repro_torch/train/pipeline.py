@@ -28,7 +28,10 @@ The port of ``repro.train.pipeline``. Four cooperating pieces:
   allocator, which records the copy on the side stream and does not reuse
   a block until that copy is done. Every plan's shapes are checked
   against its ShapeBudget bucket (a shape change would mean a new
-  signature).
+  signature), and a plan stamped under an older membership generation is
+  refused before anything is staged. When an epoch is abandoned mid-flight
+  (a fault), :meth:`PlanUploader.drain` waits for the side stream's last
+  copy before the replay reuses or drops the uploader.
 * **K-stacking** (optional, ``pipeline_stack=K``) — K same-bucket plans
   go to the fused step in one call, which loops over them.
 
@@ -73,8 +76,9 @@ class PlanUploader:
     ShapeBudget bucket it claims to be built under.
     """
 
-    def __init__(self, budget=None, device=None):
+    def __init__(self, budget=None, device=None, view=None):
         self.budget = budget
+        self.view = view               # MembershipView (world-stale refusal)
         self.device = resolve_device(device)
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -102,7 +106,22 @@ class PlanUploader:
                 event.record(self._stream)
         return dev, denom, event
 
+    def drain(self) -> None:
+        """Wait until every copy issued on the side stream is done (a CUDA
+        synchronize of that stream alone; nothing to wait for on the
+        CPU)."""
+        if self._stream is not None:
+            self._stream.synchronize()
+
     def commit(self, plan) -> None:
+        if self.view is not None:
+            # refuse to stage a dead world's bytes: a plan stamped under an
+            # older membership generation must not commit (the dispatch
+            # boundary re-checks, but the upload is the first place stale
+            # buffers would be staged)
+            ei = getattr(plan, "epoch_it", (-1, -1))
+            self.view.check_generation(getattr(plan, "generation", -1),
+                                       epoch=ei[0], it=ei[1])
         expect = None
         if self.budget is not None:
             expect = self.budget.bucket_shapes(plan.num_steps)
@@ -165,13 +184,27 @@ def run_pipelined_epoch(trainer, epoch: int, iters: int,
     pool or inline). Up to ``stack + 1`` plan builds are kept in flight so
     a K-stacked dispatch never starves; each build commits its device
     upload on the prefetch thread (PlanUploader), overlapping the transfer
-    with device execution of the previous dispatch.
+    with device execution of the previous dispatch. Plan waits go through
+    the Trainer's stall deadline, dispatches through its guarded
+    ``_dispatch``, and each synced loss window through its NaN/Inf guard.
+    When the epoch fails, the builds still in flight are abandoned through
+    the Trainer (the replay rebuilds them).
     """
+    futs: deque = deque()          # (it, future) pairs, in order
+    try:
+        return _pipelined_epoch(trainer, epoch, iters, batch_per_model,
+                                submit, stack, loss_sync_iters, futs)
+    except BaseException as e:
+        trainer._abandon([fut for _, fut in futs], e)
+        raise
+
+
+def _pipelined_epoch(trainer, epoch, iters, batch_per_model, submit, stack,
+                     loss_sync_iters, futs) -> EpochRunResult:
     K = max(1, int(stack))
     tc_start = engine.trace_count()
     t_epoch = time.perf_counter()
 
-    futs: deque = deque()          # (it, future) pairs, in order
     next_it = 0
     done = 0
 
@@ -199,7 +232,7 @@ def run_pipelined_epoch(trainer, epoch: int, iters: int,
         for _ in range(k):
             it_i, fut = futs.popleft()
             with obs_span("plan.wait", epoch=epoch, it=it_i):
-                plans.append(fut.result())
+                plans.append(trainer._plan_result(fut, epoch, it_i))
         top_up()
         if window_t is None:
             # the window opens at the first dispatch, after the (serial)
@@ -208,8 +241,11 @@ def run_pipelined_epoch(trainer, epoch: int, iters: int,
             window_t = time.perf_counter()
         tc0 = engine.trace_count()
         td0 = time.perf_counter()
+        # guarded dispatch: a stale-world plan is refused, pending
+        # background errors surface here, and transient comm faults retry
+        # during argument staging, before the in-place update
         with obs_span("dispatch", epoch=epoch, it=done):
-            loss = trainer._dispatch(plans)
+            loss = trainer._dispatch(plans, epoch, done)
         dispatch_s += time.perf_counter() - td0
         raw_losses.append(loss)
         for p in plans:
@@ -232,6 +268,9 @@ def run_pipelined_epoch(trainer, epoch: int, iters: int,
         if loss_sync_iters and since_sync >= loss_sync_iters:
             with obs_span("loss.sync", epoch=epoch, it=done - 1):
                 engine.block_until_ready(trainer.device)  # queue throttle
+            # deferred-loss NaN/Inf guard: this window's loss is final now
+            # — divergence is detected here, not an epoch later
+            trainer._check_finite(loss, epoch, done - 1)
             since_sync = 0
     with obs_span("loss.sync", epoch=epoch, it=iters - 1, boundary=True):
         engine.block_until_ready(trainer.device)

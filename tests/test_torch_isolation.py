@@ -25,8 +25,43 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for n in names:
     importlib.import_module(n)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if k.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+# Checkpoints, the precomputed tier, resilience and membership at work in
+# a process where ml_dtypes cannot be imported: a bfloat16 leaf round
+# trip, a FaultPlan fired at the comm boundary, a membership view, and an
+# empty embedding directory refused.
+_USE_NEW_MODULES = """
+import json, sys, tempfile, types
+sys.modules["ml_dtypes"] = None
+import torch
+import repro_torch.checkpoint as ck
+import repro_torch.membership as mb
+import repro_torch.resilience as rs
+import repro_torch.serve.embeddings as emb
+from repro_torch.core import distributed as engine
+d = tempfile.mkdtemp()
+w = torch.arange(6.0).to(torch.bfloat16)
+ck.save_checkpoint(d, 1, {"w": w})
+tree, step, _ = ck.load_checkpoint(d, {"w": torch.zeros(6,
+                                                        dtype=torch.bfloat16)})
+fp = rs.FaultPlan([rs.FaultSpec("comm_delay", epoch=0, it=0)])
+with fp.active():
+    engine.comm_fault_point(types.SimpleNamespace(epoch_it=(0, 0)))
+view = mb.MembershipView(4)
+view.confirm_dead(1)
+try:
+    emb.load_embeddings(d)
+    refused = False
+except FileNotFoundError:
+    refused = True
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"bf16": bool(torch.equal(tree["w"], w)),
+                  "fired": fp.fired_count(), "gen": view.generation,
+                  "refused": refused, "bad": bad}))
 """
 
 
@@ -44,9 +79,24 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     for name in ("optim.optimizers", "core.micrograph", "core.merging",
                  "core.pregather", "core.strategies", "core.distributed",
                  "cache.prefetch", "train.budget", "train.pipeline",
-                 "train.loop", "launch.train_gnn"):
+                 "train.loop", "launch.train_gnn", "checkpoint.store",
+                 "resilience.faults", "resilience.comm",
+                 "resilience.supervisor", "membership.view",
+                 "membership.detector", "membership.recovery",
+                 "serve.embeddings"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
+
+
+def test_new_modules_run_without_jax_and_ml_dtypes():
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    out = subprocess.run([sys.executable, "-c", _USE_NEW_MODULES], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"bf16": True, "fired": 1, "gen": 1, "refused": True,
+                   "bad": []}
 
 
 def _no_gpu():

@@ -211,13 +211,18 @@ def test_hop_indices_checked_against_workspace(world):
         fn(world["params"], cache, fetched, *hops)
 
 
-def test_server_refuses_what_the_slice_lacks(world):
+def test_server_refuses_what_the_slice_lacks(world, tmp_path):
+    """The precomputed tier needs a snapshot: a ckpt_dir without one, or
+    mode="precomputed" without a ckpt_dir, is refused (the tier itself is
+    tests/test_torch_embeddings.py's)."""
     kw = dict(graph=world["ds_t"].graph, params=world["params"],
               cfg=world["cfg_t"], store=world["ds_t"].features, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        torch_serve.GNNServer(ckpt_dir="snapshots", **kw)
+    with pytest.raises(FileNotFoundError, match="embedding snapshot"):
+        torch_serve.GNNServer(ckpt_dir=str(tmp_path / "snapshots"), **kw)
     with pytest.raises(ValueError, match="ckpt_dir"):
         torch_serve.GNNServer(mode="precomputed", **kw)
+    with pytest.raises(ValueError, match="unknown serve mode"):
+        torch_serve.GNNServer(mode="cold", **kw)
     with pytest.raises(ValueError, match="params lie on"):
         torch_serve.GNNServer(**dict(kw, device="meta"))
 
