@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-Drives the port's two serving paths and its GNN training path end to end
-on the card and holds every kernel it builds against its plain PyTorch
-version. Imports nothing of JAX and nothing of the JAX package. Phases
-(any failure ends the run with a non-zero exit and no result line):
+Drives the port's two serving paths and its GNN training path (resident,
+streamed from disk, and the P³ baseline) end to end on the card, and holds
+every kernel it builds against its plain PyTorch version. Imports nothing
+of JAX and nothing of the JAX package. Phases (any failure ends the run
+with a non-zero exit and no result line):
 
   1. build    nvcc builds src/repro_torch/kernels/csrc/gather_agg.cu and
               csrc/linattn.cu for sm_90a into build/repro_torch_kernels/
@@ -74,6 +75,33 @@ version. Imports nothing of JAX and nothing of the JAX package. Phases
               save/load ms and bytes, precompute time split into host
               plan and forward, and the served rate, p50/p99 and share
               answered from the table.
+  p3          the P³ baseline on the same world and model: one
+              run_p3_iteration (the input layer over 4 slices of the
+              feature dims, each hop's rows gathered once per shard from the
+              full table with gather_rows) on the same roots as one
+              model-centric and one hopgnn iteration. Gates its grads on
+              CUDA against the port's P³ on the CPU (1e-4 of each leaf's
+              largest value) and against model-centric on the card (rtol
+              2e-3, atol 2e-5, tests/test_core.py), the losses within 1e-4,
+              gather_rows bitwise at the P³ hop sizes, and (layers+1) x
+              shards launches. Prints time per iteration of P³ and hopgnn
+              (CUDA events, and device busy time under the profiler), and
+              the comm_model bytes of model_centric, naive_fc, hopgnn, p3
+              and lo with P3Plan.activation_bytes.
+  stream      streamed (out-of-core) training: the features spilled to
+              per-shard .npy files under build/ with a host hot tier of a
+              third of the table and checksums on; three runs of 3 epochs x
+              6 iterations with merging off — resident, streamed (spans on)
+              and streamed under the reference's whole
+              FaultPlan.recoverable(seed=3), disk_corrupt included. Gates
+              the streamed run bitwise against the resident one and the
+              faulted one against it (5 kinds fired, 1 rollback, a crc
+              failure repaired), tier-1 rows from epoch 1 on, no new
+              signature after epoch 0, gather_rows launched once per
+              (shard, step, hop), and the exported Chrome trace valid with
+              the main, prefetch, uploader and cache+readahead tracks.
+              Prints per-epoch steady ms/iter, plan ms, tier rows and bytes
+              and upload bytes per plan, and one profiled epoch.
   6. rwkv6    rwkv6-7b at its published width, cut to 2 layers, float32:
               the CUDA prefill (through the linattn kernel) against the
               same parameters' prefill on the CPU (plain versions), and
@@ -112,21 +140,31 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import distributed as engine  # noqa: E402
-from repro_torch.core import plan_inference  # noqa: E402
+from repro_torch.core import (plan_inference, plan_iteration,  # noqa: E402
+                              plan_p3, run_p3_iteration)
+from repro_torch.core.comm_model import (FABRICS, ModelSpec,  # noqa: E402
+                                         hopgnn_bytes, lo_bytes,
+                                         model_centric_bytes, naive_fc_bytes,
+                                         p3_bytes)
 from repro_torch.data import make_batch  # noqa: E402
 from repro_torch.features import FeatureStore  # noqa: E402
 from repro_torch.graph import make_dataset  # noqa: E402
 from repro_torch.graph.partition import (community_partition,  # noqa: E402
                                          shard_features)
-from repro_torch.graph.sampler import sample_tree_block  # noqa: E402
+from repro_torch.graph.sampler import (micrograph_split,  # noqa: E402
+                                       sample_tree_block)
 from repro_torch.kernels import gather_agg as ga  # noqa: E402
 from repro_torch.kernels import linattn as la  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch.serve import LLMServer, generate  # noqa: E402
 from repro_torch.models.gnn import GNNConfig, gnn_forward, init_gnn  # noqa: E402
+from repro_torch.models.gnn.models import model_param_bytes  # noqa: E402
 from repro_torch.models.transformer import (decode_step,  # noqa: E402
                                             init_params, prefill)
 from repro_torch.obs import trace  # noqa: E402
+from repro_torch.obs.export import (export_chrome_trace,  # noqa: E402
+                                    run_manifest, trace_track_names,
+                                    validate_chrome_trace)
 from repro_torch.checkpoint import (load_checkpoint,  # noqa: E402
                                     save_checkpoint)
 from repro_torch.optim import adamw, cosine_schedule  # noqa: E402
@@ -161,6 +199,10 @@ TRAIN_EPOCHS, TRAIN_ITERS, TRAIN_BATCH = 2, 8, 256   # batch per model
 TRAIN_RTOL = 1e-4
 CKPT_EPOCHS, CKPT_ITERS = 3, 6
 PRECOMPUTE_CHUNK = 256
+DEVICE = "cuda"    # the device of the p3 and stream phases
+P3_SAMPLE_SEED = 7
+P3_TOL = dict(rtol=2e-3, atol=2e-5)   # tests/test_core.py: P3 vs MC grads
+STREAM_EPOCHS, STREAM_ITERS = 3, 6
 
 
 def log(phase: str, msg: str) -> None:
@@ -1141,6 +1183,310 @@ def phase_ckpt(ds, store, part, cfg, seed: int, requests: int,
 
 
 # ---------------------------------------------------------------------------
+# Phase p3: the P³ baseline beside LeapGNN, and the byte accounting
+# ---------------------------------------------------------------------------
+
+def max_errs(got, want) -> list:
+    """Per leaf: (max abs err, the reference leaf's largest |value|)."""
+    return [(float((a.cpu() - b.cpu()).abs().max()),
+             float(b.cpu().abs().max())) for a, b in zip(got, want)]
+
+
+def phase_p3(ds, store, part, cfg, seed: int) -> int:
+    """One P³ iteration on the same roots as one model-centric and one
+    hopgnn iteration, at phase 5's world and model."""
+    layers = cfg.num_layers + 1
+    params = init_gnn(cfg, torch.Generator().manual_seed(seed), DEVICE)
+    rng = np.random.default_rng(seed + 3)
+    roots = [rng.choice(ds.train_vertices(), TRAIN_BATCH, replace=False)
+             for _ in range(SHARDS)]
+    t0 = time.perf_counter()
+    plan = plan_p3(ds.graph, ds.labels, roots, cfg.num_layers, cfg.fanout,
+                   cfg.hidden_dim, sample_seed=P3_SAMPLE_SEED)
+    plan_ms = 1e3 * (time.perf_counter() - t0)
+    common = dict(graph=ds.graph, labels=ds.labels, part=part,
+                  owner=store.owner, local_idx=store.local_idx,
+                  local_rows=store.local_rows, roots_per_model=roots,
+                  num_layers=cfg.num_layers, fanout=cfg.fanout,
+                  sample_seed=P3_SAMPLE_SEED)
+    mc = plan_iteration(strategy="model_centric", **common)
+    hg = plan_iteration(strategy="hopgnn", **common)
+    feats = torch.from_numpy(ds.features).to(DEVICE)
+    table = engine.upload(store.as_dense(), DEVICE)
+    log("p3", f"{SHARDS} models x {TRAIN_BATCH} roots, sage "
+              f"{cfg.num_layers}x{cfg.hidden_dim} fanout {cfg.fanout}, "
+              f"feature table {tuple(feats.shape)} on the card; plan_p3 "
+              f"{plan_ms:.1f} ms; the input layer runs over "
+              f"{SHARDS} slices of the {cfg.feature_dim} feature dims")
+    # the kernel at the P³ hop sizes: shard 0's hops from the full table
+    tot = time_gather_rows("p3", "P3", feats, [
+        torch.from_numpy(h.astype(np.int32)).to(DEVICE)
+        for h in plan.blocks[0].hops])
+    log("p3", f"gather_rows, {layers} hops of one shard: device "
+              f"{tot['ms']:.5f} ms (plain {tot['plain_ms']:.5f}, "
+              f"index_select {tot['library_ms']:.5f}, bound "
+              f"{tot['bound_ms']:.5f}); an iteration runs {SHARDS} such")
+
+    # the main path: counts are zeroed just before it and read just after
+    ga.reset_launches()
+    g3, l3 = run_p3_iteration(params, feats, plan, cfg)
+    torch.cuda.synchronize()
+    launches = ga.launches["gather_rows"]
+    gm, lm = engine.run_iteration(params, table, mc, cfg)
+    t0 = time.perf_counter()
+    g3c, l3c = run_p3_iteration(copy.deepcopy(params).cpu(), ds.features,
+                                plan, cfg, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    e_cpu = max_errs(g3, g3c)
+    e_mc = max_errs(g3, gm)
+    losses = (float(l3), float(lm), float(l3c))
+    log("p3", f"loss P3 CUDA {losses[0]:.7f}, model-centric CUDA "
+              f"{losses[1]:.7f}, P3 CPU {losses[2]:.7f} (CPU "
+              f"{t_cpu:.2f} s); grad leaves, P3 CUDA vs CPU max abs err "
+              f"{[float(f'{e:.3g}') for e, _ in e_cpu]} (each within "
+              f"{TRAIN_RTOL} x the leaf's largest |g|); vs model-centric "
+              f"{[float(f'{e:.3g}') for e, _ in e_mc]} (rtol "
+              f"{P3_TOL['rtol']}, atol {P3_TOL['atol']}); gather_rows "
+              f"launches {launches} (want {layers * SHARDS} = (layers+1) x "
+              f"shards)")
+    for i, (err, scale) in enumerate(e_cpu):
+        if err > TRAIN_RTOL * scale:
+            raise AssertionError(f"P3 grad leaf {i}: CUDA vs CPU max abs "
+                                 f"err {err} > {TRAIN_RTOL} x {scale}")
+    for i, (a, b) in enumerate(zip(g3, gm)):
+        if not torch.allclose(a, b, **P3_TOL):
+            raise AssertionError(f"P3 grad leaf {i} differs from "
+                                 f"model-centric's: {e_mc[i][0]}")
+    if max(losses) - min(losses) > 1e-4:
+        raise AssertionError(f"P3 / model-centric / CPU losses {losses}")
+    if launches != layers * SHARDS:
+        raise AssertionError(f"P3 launched gather_rows {launches} times, "
+                             f"want {layers * SHARDS}")
+    del g3c, gm
+
+    # time per iteration: CUDA events around warm calls (host gaps and
+    # the plan's index uploads included), then the device's busy time
+    p3_ms = call_ms(lambda: run_p3_iteration(params, feats, plan, cfg),
+                    iters=3, warmup=1)
+    hop_ms = call_ms(lambda: engine.run_iteration(params, table, hg, cfg),
+                     iters=3, warmup=1)
+    log("p3", f"per iteration (CUDA events, warm): P3 {p3_ms:.3f} ms, "
+              f"hopgnn (T={hg.num_steps}, pregather) {hop_ms:.3f} ms")
+    device_profile(lambda: [run_p3_iteration(params, feats, plan, cfg)
+                            for _ in range(3)], "p3", 3, "P3 iteration")
+    device_profile(lambda: [engine.run_iteration(params, table, hg, cfg)
+                            for _ in range(3)], "p3", 3, "hopgnn iteration")
+
+    # the byte accounting of every strategy on these roots' trees
+    spec = ModelSpec(feature_dim=cfg.feature_dim, hidden_dim=cfg.hidden_dim,
+                     num_layers=cfg.num_layers,
+                     param_bytes=model_param_bytes(params))
+    micros, shard_of = [], []
+    for s, blk in enumerate(plan.blocks):
+        m = micrograph_split(blk)
+        micros.extend(m)
+        shard_of.extend([s] * len(m))
+    eth = FABRICS["ethernet_10g"]
+    acct = {"model_centric": model_centric_bytes(micros, store.owner,
+                                                 shard_of, spec, SHARDS),
+            "naive_fc": naive_fc_bytes(micros, store.owner, spec, SHARDS),
+            "hopgnn": hopgnn_bytes(hg.remote_rows_exact, hg.num_steps, spec,
+                                   SHARDS),
+            "p3": p3_bytes(micros, store.owner, shard_of, spec, SHARDS),
+            "lo": lo_bytes(spec, SHARDS)}
+    for name, b in acct.items():
+        log("p3", f"comm_model {name}: total {b['total']} B (features "
+                  f"{b['feature_bytes']}, grads {b['grad_bytes']}, model "
+                  f"{b['model_bytes']}, intermediate "
+                  f"{b['intermediate_bytes']}); modeled on 10 Gb/s "
+                  f"Ethernet {1e3 * eth.seconds(b['total'] / SHARDS):.3f} "
+                  f"ms per shard")
+    log("p3", f"hopgnn remote rows (plan, exact) {hg.remote_rows_exact}, "
+              f"model-centric remote rows "
+              f"{acct['model_centric']['remote_rows']}; "
+              f"P3Plan.activation_bytes {plan.activation_bytes()} B; params "
+              f"{spec.param_bytes} B")
+    del params, feats, table, plan, mc, hg
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase stream: streamed (out-of-core) training from a spilled store
+# ---------------------------------------------------------------------------
+
+def stream_trainer(ds, table, part, cfg, seed: int):
+    """Phase ckpt's Trainer (merging off, the default resilience policy)
+    without checkpoints, over ``table``: a resident or a tiered store."""
+    return Trainer(graph=ds.graph, labels=ds.labels, part=part,
+                   owner=table.owner, local_idx=table.local_idx,
+                   table=table, cfg=cfg, optimizer=train_optimizer(),
+                   init_seed=seed, strategy="hopgnn", pregather=True,
+                   merging=False, train_vertices=ds.train_vertices(),
+                   device=DEVICE)
+
+
+def spill(ds, part, directory: str, budget: int):
+    t0 = time.perf_counter()
+    st = FeatureStore.build(ds.features, part, SHARDS, directory=directory,
+                            host_budget_bytes=budget)
+    return st, time.perf_counter() - t0
+
+
+def log_stream(tag: str, stats) -> None:
+    for st in stats:
+        n = max(st.plans_built, 1)
+        log("stream", f"{tag} epoch {st.epoch}: loss {st.loss!r}, steady "
+                      f"{1e3 * st.steady_time_s / STREAM_ITERS:.2f} ms/iter,"
+                      f" plan {1e3 * st.plan_time_s / n:.2f} ms/plan "
+                      f"({st.plans_built} plans, host tier reads included),"
+                      f" tier-1 rows {st.tier1_rows} ({st.tier1_bytes} B), "
+                      f"tier-2 rows {st.tier2_rows} ({st.tier2_bytes} B), "
+                      f"upload {st.upload_bytes // STREAM_ITERS} B/plan, "
+                      f"readahead {1e3 * st.readahead_s:.1f} ms, traces "
+                      f"{st.traces}, attempts {st.epoch_attempts}, "
+                      f"rollbacks {st.rollbacks}, crc failures "
+                      f"{st.crc_failures}, repaired rows {st.repaired_rows},"
+                      f" wall {st.time_s:.3f} s")
+
+
+def phase_stream(ds, store, part, cfg, seed: int) -> int:
+    base = os.path.join(ROOT, "build", "chip_smoke_stream")
+    shutil.rmtree(base, ignore_errors=True)
+    budget = store.backing_nbytes() // 3
+    layers = cfg.num_layers + 1
+    per_run = layers * SHARDS * SHARDS * STREAM_ITERS * STREAM_EPOCHS
+    args = (STREAM_EPOCHS, STREAM_ITERS)
+
+    # 1. resident baseline
+    tr = stream_trainer(ds, store, part, cfg, seed)
+    t0 = time.perf_counter()
+    sr = tr.fit(*args, batch_per_model=TRAIN_BATCH)
+    steady = [round(1e3 * s.steady_time_s / STREAM_ITERS, 2) for s in sr]
+    log("stream", f"resident run {time.perf_counter() - t0:.2f} s; steady "
+                  f"{steady} ms/iter")
+
+    # 2. streamed straight run, traced — counts zeroed just before it
+    sp, spill_s = spill(ds, part, os.path.join(base, "straight"), budget)
+    ts = stream_trainer(ds, sp, part, cfg, seed)
+    log("stream", f"features spilled to {SHARDS} .npy shards under "
+                  f"{os.path.relpath(base, ROOT)}/ in {spill_s:.2f} s "
+                  f"({sp.backing_nbytes()} B, checksums "
+                  f"{sp.checksums_enabled}); host hot tier budget {budget} B"
+                  f" ({sp.hot_rows} rows per shard of {sp.local_rows}); "
+                  f"{STREAM_EPOCHS} epochs x {STREAM_ITERS} iterations, "
+                  f"merging off, spans on")
+    trace.clear()
+    trace.enable()
+    ga.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        ss = ts.fit(*args, batch_per_model=TRAIN_BATCH)
+    finally:
+        trace.disable()
+    wall = time.perf_counter() - t0
+    launches = ga.launches["gather_rows"]
+    log_stream("streamed", ss)
+    path = export_chrome_trace(os.path.join(base, "streamed_trace.json"),
+                               manifest=run_manifest(seed=seed))
+    trace.clear()
+    doc = json.loads(open(path).read())
+    problems = validate_chrome_trace(doc)
+    tracks = trace_track_names(doc)
+    want_tracks = {"main", "prefetch", "uploader", "cache+readahead"}
+    bitwise = [a.loss for a in sr] == [b.loss for b in ss] \
+        and same_state(tr, ts)
+    retraces = sum(s.traces for s in ss[1:])
+    log("stream", f"streamed run {wall:.2f} s; vs resident: losses and "
+                  f"parameters bitwise {bitwise}; gather_rows launches "
+                  f"{launches} (want {per_run} = (layers+1) x shards x "
+                  f"steps x iterations); new signatures after epoch 0 "
+                  f"{retraces}; l_max {ts.budget.l_max}, r_max "
+                  f"{ts.budget.r_max}")
+    log("stream", f"trace {os.path.relpath(path, ROOT)}: "
+                  f"{doc['otherData']['span_records']} records, "
+                  f"{sum(1 for e in doc['traceEvents'] if e['ph'] == 'X')} "
+                  f"spans, tracks {sorted(tracks)}, validation problems "
+                  f"{len(problems)}")
+    if not bitwise:
+        raise AssertionError("the streamed run is not bitwise the resident "
+                             "run")
+    if launches != per_run:
+        raise AssertionError(f"streamed training launched gather_rows "
+                             f"{launches} times, want {per_run}")
+    if retraces != 0:
+        raise AssertionError(f"{retraces} new signatures after epoch 0")
+    if not all(s.tier1_rows > 0 for s in ss[1:]):
+        raise AssertionError("readahead did not warm the hot tier")
+    if problems or not want_tracks <= tracks:
+        raise AssertionError(f"exported trace: problems {problems[:5]}, "
+                             f"tracks {sorted(tracks)}")
+
+    # 3. the reference's whole recoverable plan on a second spilled store
+    fp = FaultPlan.recoverable(seed=3)
+    sf_store, _ = spill(ds, part, os.path.join(base, "faulted"), budget)
+    tf = stream_trainer(ds, sf_store, part, cfg, seed)
+    ga.reset_launches()
+    t0 = time.perf_counter()
+    with fp.active():
+        sf = tf.fit(*args, batch_per_model=TRAIN_BATCH)
+    wall_f = time.perf_counter() - t0
+    log_stream("faulted", sf)
+    kinds = sorted({k for k, *_ in fp.fired})
+    rollbacks = sum(s.rollbacks for s in sf)
+    crc = sum(s.crc_failures for s in sf)
+    repaired = sum(s.repaired_rows for s in sf)
+    bitwise_f = [a.loss for a in ss] == [b.loss for b in sf] \
+        and same_state(ts, tf)
+    log("stream", f"faulted run {wall_f:.2f} s; fired {fp.fired}; vs the "
+                  f"straight streamed run: losses and parameters bitwise "
+                  f"{bitwise_f}; kinds fired {kinds}; rollbacks {rollbacks};"
+                  f" crc failures {crc}, repaired rows {repaired}; "
+                  f"gather_rows launches {ga.launches['gather_rows']} "
+                  f"(replays add to {per_run})")
+    if kinds != sorted({sp.kind for sp in fp.specs}) or len(kinds) != 5:
+        raise AssertionError(f"fault kinds fired {kinds}")
+    if not bitwise_f:
+        raise AssertionError("the faulted streamed run is not bitwise the "
+                             "straight one")
+    if rollbacks != 1 or crc < 1 or repaired < 1:
+        raise AssertionError(f"rollbacks {rollbacks}, crc failures {crc}, "
+                             f"repaired rows {repaired}")
+
+    # the kernel at the streamed hop sizes: (shard 0, step 0) of a fresh
+    # plan, on shard 0's workspace [feat_local | feat_fetch]
+    plan = ts.build_plan(STREAM_EPOCHS + 1, 0, TRAIN_BATCH)
+    d = cfg.feature_dim
+    ws = torch.cat([torch.from_numpy(plan.feat_local[0]),
+                    torch.from_numpy(plan.feat_fetch[0]).reshape(-1, d)],
+                   0).to(DEVICE)
+    tot = time_gather_rows("stream", "streamed", ws, [
+        torch.from_numpy(np.ascontiguousarray(h[0, 0])).to(DEVICE)
+        for h in plan.hop_idx])
+    log("stream", f"gather_rows, {layers} hops of one (shard, step): device "
+                  f"{tot['ms']:.5f} ms (plain {tot['plain_ms']:.5f}, "
+                  f"index_select {tot['library_ms']:.5f}, bound "
+                  f"{tot['bound_ms']:.5f}); workspace l_max {plan.l_max} + "
+                  f"{SHARDS} x r_max {plan.r_max} rows")
+    del plan, ws
+
+    # one more epoch of the straight run's loop, profiled (it moves the
+    # straight run's state on, so it comes after the comparisons)
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(1, thread_name_prefix="prefetch") as pool:
+        device_profile(lambda: run_pipelined_epoch(
+            ts, STREAM_EPOCHS, STREAM_ITERS, TRAIN_BATCH, pool.submit,
+            loss_sync_iters=ts.loss_sync_iters), "stream", STREAM_ITERS,
+            "iteration")
+    ts._close_plan_pool()
+    del tr, ts, tf, sp, sf_store
+    torch.cuda.empty_cache()
+    for sub in ("straight", "faulted"):
+        shutil.rmtree(os.path.join(base, sub), ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: RWKV6 at full width, 2 layers, float32
 # ---------------------------------------------------------------------------
 
@@ -1354,6 +1700,10 @@ def main() -> int:
                                                       args.seed)
     by_path["gather_rows"].update(phase_ckpt(ds, store, part, cfg, args.seed,
                                              args.requests, args.qps))
+    by_path["gather_rows"]["p3_train"] = phase_p3(ds, store, part, cfg,
+                                                  args.seed)
+    by_path["gather_rows"]["gnn_train_streamed"] = phase_stream(
+        ds, store, part, cfg, args.seed)
     del ds, store
     phase_rwkv6_wide(args.seed)
     by_path["linattn"]["llm_serve"] = phase_llm(args.seed)

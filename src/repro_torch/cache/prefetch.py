@@ -74,9 +74,7 @@ class EpochPrefetcher:
 
     def iteration_sets(self, epoch: int, it: int) -> list[np.ndarray]:
         """Per-requesting-shard deduped ids (local AND remote) one future
-        iteration touches. (The reference also forecasts per-owner reads
-        from these for the tiered store's readahead, which arrives with
-        streamed training.)"""
+        iteration touches — the common core both forecasts share."""
         roots = self.roots_for(epoch, it)
         amat = self._assignment(roots)
         seed = self.sample_seed_for(epoch, it)
@@ -99,6 +97,39 @@ class EpochPrefetcher:
         exactly the sets ``build_gather_plan`` would dedup to (§5.2)."""
         sets = self.iteration_sets(epoch, it)
         return [ids[self.owner[ids] != s] for s, ids in enumerate(sets)]
+
+    def epoch_touched(self, epoch: int, iters: int
+                      ) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Per-OWNING-shard (ids, read_counts) over a whole future epoch:
+        every id whose feature row shard p will have to *serve* next epoch
+        — to its own plans' local region or to a peer's fetch — with the
+        number of iteration-level reads as the count. This is the exact
+        tier-2 → tier-1 readahead forecast for the tiered FeatureStore
+        (repro_torch.features): installing these rows hot means next epoch's plan
+        gathers never touch the mmap tier (given a covering budget).
+
+        Grouping is by OWNER (who serves the read), unlike
+        :meth:`epoch_requests`' by-REQUESTER grouping (who caches the
+        fetch) — the two consumers of the same sampled future."""
+        n = self.num_shards
+        per_owner: list[list[np.ndarray]] = [[] for _ in range(n)]
+        for it in range(iters):
+            sets = self.iteration_sets(epoch, it)
+            for ids in sets:
+                if ids.size == 0:
+                    continue
+                own = self.owner[ids]
+                for p in np.unique(own):
+                    per_owner[int(p)].append(ids[own == p])
+        out = []
+        for p in range(n):
+            if per_owner[p]:
+                ids, cnt = np.unique(np.concatenate(per_owner[p]),
+                                     return_counts=True)
+                out.append((ids, cnt.astype(np.int64)))
+            else:
+                out.append((np.zeros(0, np.int64), np.zeros(0, np.int64)))
+        return out
 
     def epoch_requests(self, epoch: int, iters: int
                        ) -> list[tuple[np.ndarray, np.ndarray]]:

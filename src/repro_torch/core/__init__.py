@@ -10,6 +10,8 @@ forward.
   - plan_inference(cfg)          serving micro-batch planner → InferencePlan
   - get_compiled_inference(cfg)  the device forward over ``[cached | fetched]``
   - PlanOverflow                 structured shape-budget overflow signal
+  - plan_p3 / run_p3_iteration   the executable P³ baseline
+  - comm_model.*                 byte accounting for every strategy
 
 The compile-once training loop over these lives in :mod:`repro_torch.train`.
 """
@@ -20,7 +22,10 @@ from repro_torch.core.distributed import (EmulatedComm, clear_compile_cache,
                                           infer_trace_count, run_iteration,
                                           run_train_step, trace_count,
                                           trace_log)
+from repro_torch.core import comm_model
 from repro_torch.core.merging import MergingController, fold_assignment
+from repro_torch.core.p3 import (P3Plan, P3Unsupported, plan_p3,
+                                 run_p3_iteration)
 from repro_torch.core.pregather import PlanOverflow
 from repro_torch.core.strategies import (InferencePlan, IterationPlan,
                                          Strategy, plan_inference,
@@ -31,4 +36,5 @@ __all__ = ["plan_iteration", "IterationPlan", "Strategy", "run_iteration",
            "get_compiled_train_step", "EmulatedComm", "MergingController",
            "fold_assignment", "plan_inference", "InferencePlan",
            "PlanOverflow", "get_compiled_inference", "infer_trace_count",
-           "trace_count", "trace_log", "clear_compile_cache"]
+           "trace_count", "trace_log", "clear_compile_cache", "comm_model",
+           "P3Plan", "P3Unsupported", "plan_p3", "run_p3_iteration"]

@@ -18,6 +18,15 @@ mode rebuilds the fetched region every step, from one batched index
 exchange ahead of the steps and either one folded feature return
 (``fold_returns``) or one per step, as the reference does.
 
+Streamed mode (a tiered FeatureStore, :mod:`repro_torch.features`): the
+plan carries its own feature blocks, host-gathered through the store's
+tiers — the touched local rows compacted into ``feat_local`` and the miss
+rows in ``feat_fetch`` — so no feature table lives on the device and no
+feature exchange runs. Each shard's workspace is ``[feat_local | cached |
+feat_fetch]``, gathered from with the same ``gather_rows`` kernel; the
+values per tree position equal the resident path's, so grads and losses
+are bitwise the resident iteration's.
+
 Gradients: each time step's loss (a padding-masked sum) is differentiated
 with ``torch.autograd.grad`` with respect to the parameters only — the
 workspace never requires a gradient, as the reference never differentiates
@@ -172,9 +181,36 @@ def _shard_grads(params, cfg: GNNConfig, workspace_fn: Callable,
     return gacc, lacc
 
 
+def _emulated_streamed_iteration(params, cache_g, dev, denom,
+                                 cfg: GNNConfig):
+    """Streamed mode, all shards on one device: each shard's workspace
+    comes straight from the plan's feature blocks (no table, no exchange).
+    Feature values per tree position equal the resident path's exactly —
+    only the slot numbering differs — so grads and losses are bitwise the
+    resident iteration's."""
+    ecomm = EmulatedComm()
+    n = dev["labels"].shape[0]
+    d = dev["feat_local"].shape[-1]
+    per_shard = []
+    for s in range(n):
+        ws = torch.cat([dev["feat_local"][s], cache_g[s],
+                        dev["feat_fetch"][s].reshape(-1, d)], 0)
+        hop_idx = [h[s] for h in dev["hop_idx"]]
+        per_shard.append(_shard_grads(params, cfg, lambda t, ws=ws: ws,
+                                      hop_idx, dev["labels"][s],
+                                      dev["weights"][s]))
+    grads = ecomm.grad_mean_global([g for g, _ in per_shard], denom)
+    loss = sum(l for _, l in per_shard) / denom
+    return grads, loss
+
+
 def _emulated_iteration(params, table_g, cache_g, dev, denom,
-                        cfg: GNNConfig, pregather: bool, fold_returns: bool):
-    """All shards on one device: a loop over shards, explicit exchange."""
+                        cfg: GNNConfig, pregather: bool, fold_returns: bool,
+                        streamed: bool = False):
+    """All shards on one device: a loop over shards, explicit exchange
+    (``streamed``: no table and no exchange; the plan carries the rows)."""
+    if streamed:
+        return _emulated_streamed_iteration(params, cache_g, dev, denom, cfg)
     ecomm = EmulatedComm()
     n, d = table_g.shape[0], table_g.shape[-1]
     if pregather:
@@ -274,7 +310,8 @@ def _tracing(kind: str, cfg: GNNConfig, pregather: bool, body: Callable,
 
 
 def get_compiled_iteration(cfg: GNNConfig, pregather: bool,
-                           fold_returns: bool = False):
+                           fold_returns: bool = False,
+                           streamed: bool = False):
     """The cached iteration callable for this engine configuration:
     ``fn(params, table, cache, dev, denom) -> (grads, loss)`` with
     ``table`` (N, local_rows, d) and ``cache`` (N, c_max, d) tensors on the
@@ -282,13 +319,17 @@ def get_compiled_iteration(cfg: GNNConfig, pregather: bool,
     plan's device args as tensors there, and ``denom`` the true global
     batch size as a float32 scalar tensor. Returns the gradient leaves in
     :meth:`GNN.leaves` order and the mean loss, both on the device.
-    ``fold_returns`` only affects per-step mode."""
-    key = ("emulated", cfg, bool(pregather), bool(fold_returns))
+    ``fold_returns`` only affects per-step mode. ``streamed``: the plan
+    carries its feature blocks (``feat_local``/``feat_fetch`` in ``dev``)
+    and ``table`` is the shared zero-width placeholder; no feature exchange
+    runs."""
+    key = ("emulated", cfg, bool(pregather), bool(fold_returns),
+           bool(streamed))
     fn = _COMPILE_CACHE.get(key)
     if fn is None:
         def body(params, table, cache, dev, denom):
             return _emulated_iteration(params, table, cache, dev, denom, cfg,
-                                       pregather, fold_returns)
+                                       pregather, fold_returns, streamed)
         fn = _tracing("emulated", cfg, pregather, body, dev_pos=3)
         _COMPILE_CACHE[key] = fn
     return fn
@@ -358,7 +399,8 @@ def optimizer_cache_key(optimizer) -> tuple:
 
 def get_compiled_train_step(cfg: GNNConfig, pregather: bool, optimizer,
                             fold_returns: bool = False,
-                            stacked: bool = False):
+                            stacked: bool = False,
+                            streamed: bool = False):
     """Cached *fused* train step: iteration + optimizer update, one call.
 
     Signature ``fn(params, opt_state, table, cache, dev, denom) ->
@@ -366,9 +408,10 @@ def get_compiled_train_step(cfg: GNNConfig, pregather: bool, optimizer,
     and moments given are overwritten and returned; continue from the
     returned ones). With ``stacked=True`` ``dev`` is a list of K plans'
     device args and ``denom`` a (K,) tensor; the fused step runs over the
-    K iterations in order and the call returns (K,) losses."""
+    K iterations in order and the call returns (K,) losses. ``streamed``
+    as for :func:`get_compiled_iteration`."""
     key = ("fused", cfg, bool(pregather), bool(fold_returns),
-           optimizer_cache_key(optimizer), bool(stacked))
+           optimizer_cache_key(optimizer), bool(stacked), bool(streamed))
     fn = _COMPILE_CACHE.get(key)
     if fn is None:
         kind = "emulated-fused" + ("-stacked" if stacked else "")
@@ -376,7 +419,7 @@ def get_compiled_train_step(cfg: GNNConfig, pregather: bool, optimizer,
         def one(params, opt_state, table, cache, dev, denom):
             grads, loss = _emulated_iteration(params, table, cache, dev,
                                               denom, cfg, pregather,
-                                              fold_returns)
+                                              fold_returns, streamed)
             params, opt_state = optimizer.update(grads, opt_state, params)
             return params, opt_state, loss
 
@@ -412,14 +455,28 @@ def resolve_fold_returns(plan, fold_returns: Optional[bool] = None) -> bool:
 def check_plan_indices(plan) -> None:
     """Every index a plan hands the device, checked on the host: tree
     positions below the workspace height ``local_rows + c_max + P·r_max``
-    (the gather kernel does no bounds check), request indices below
-    ``local_rows``. Raises TypeError or IndexError."""
-    height = plan.local_rows + plan.c_max + plan.num_shards * plan.r_max
-    reqs = plan.req if plan.pregather else plan.step_req
+    (``l_max`` in place of ``local_rows`` for a streamed plan, whose feature
+    blocks must have the plan's shapes) — the gather kernel does no bounds
+    check — and request indices below ``local_rows``. Raises TypeError,
+    IndexError or ValueError."""
+    n, streamed = plan.num_shards, plan.streamed
+    height = (plan.l_max if streamed else plan.local_rows) \
+        + plan.c_max + n * plan.r_max
+    if streamed:
+        d = plan.feat_local.shape[-1]
+        for name, arr, want in (
+                ("feat_local", plan.feat_local, (n, plan.l_max, d)),
+                ("feat_fetch", plan.feat_fetch, (n, n, plan.r_max, d))):
+            if tuple(arr.shape) != want:
+                raise ValueError(f"{name} {tuple(arr.shape)} does not match "
+                                 f"the plan's {want}")
+        reqs = []
+    else:
+        reqs = [("req" if plan.pregather else "step_req",
+                 plan.req if plan.pregather else plan.step_req,
+                 plan.local_rows)]
     for name, arr, hi in ([(f"hop_idx[{h}]", a, height)
-                           for h, a in enumerate(plan.hop_idx)]
-                          + [("req" if plan.pregather else "step_req", reqs,
-                              plan.local_rows)]):
+                           for h, a in enumerate(plan.hop_idx)] + reqs):
         if arr.dtype != np.int32:
             raise TypeError(f"{name} must be int32, got {arr.dtype}")
         if arr.size and (arr.min() < 0 or arr.max() >= hi):
@@ -524,6 +581,11 @@ def block_until_ready(device: torch.device) -> None:
         ev.synchronize()
 
 
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a numpy dtype."""
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
 # (num_shards, feature_dim, dtype, device) -> (N, 0, d) zeros. Cache-off
 # iterations share one zero-width cache table.
 _EMPTY_CACHE: dict = {}
@@ -552,16 +614,27 @@ def prepare_iteration_args(table_global, plan, cache=None, device=None,
     upload (:func:`plan_device_args`); an uncommitted plan has its indices
     checked on the host here, then uploads. The comm fault point runs
     first, before anything reaches the device, unless the caller ran it
-    already (``fault_point=False``)."""
+    already (``fault_point=False``).
+
+    Streamed plans: no resident table exists — ``table_global=None`` is
+    replaced by the shared zero-width placeholder on ``device`` (the
+    plan's feature blocks ride in its device args)."""
     if fault_point:
         comm_fault_point(plan)
     if table_global is None:
-        raise ValueError("table_global is required (streamed plans from a "
-                         "tiered FeatureStore are not ported yet)")
+        if not plan.streamed:
+            raise ValueError("table_global=None is only valid for streamed "
+                             "plans (tiered FeatureStore)")
+        fl = plan.feat_local
+        table_global = empty_cache_table(plan.num_shards, fl.shape[-1],
+                                         torch_dtype(fl.dtype), device)
     if not isinstance(table_global, torch.Tensor):
         table_global = upload(table_global, resolve_device(device))
     device = table_global.device
-    if tuple(table_global.shape[:2]) != (plan.num_shards, plan.local_rows):
+    # a streamed plan never reads the table: no shape to check
+    if not plan.streamed and \
+            tuple(table_global.shape[:2]) != (plan.num_shards,
+                                              plan.local_rows):
         raise ValueError(f"table {tuple(table_global.shape)} does not match "
                          f"the plan's ({plan.num_shards}, {plan.local_rows}, "
                          f"d)")
@@ -619,7 +692,8 @@ def run_iteration(params, table_global, plan, cfg: GNNConfig, cache=None,
         table_global, plan, cache, device)
     fn = get_compiled_iteration(cfg, plan.pregather,
                                 fold_returns=resolve_fold_returns(
-                                    plan, fold_returns))
+                                    plan, fold_returns),
+                                streamed=plan.streamed)
     return fn(params, table_global, cache, dev, denom)
 
 
@@ -634,5 +708,6 @@ def run_train_step(params, opt_state, table_global, plan, cfg: GNNConfig,
         table_global, plan, cache, device)
     fn = get_compiled_train_step(cfg, plan.pregather, optimizer,
                                  fold_returns=resolve_fold_returns(
-                                     plan, fold_returns))
+                                     plan, fold_returns),
+                                 streamed=plan.streamed)
     return fn(params, opt_state, table_global, cache, dev, denom)

@@ -23,10 +23,10 @@ Planner hot path: plan construction is vectorized numpy — one
 every shard at once, ``bincount``/``argsort`` produce the per-(shard, peer)
 layout, and the global-id → workspace-slot translation is a
 :class:`SlotMap` (``searchsorted`` over per-shard sorted id segments).
-A copy of the reference's ``repro.core.pregather``; the plans are bitwise
-equal to the reference's, and its per-vertex ``_reference_*`` oracles stay
-in the reference (the port's tests hold the two against each other). The
-streamed-mode helpers (a tiered FeatureStore) arrive with that mode.
+A copy of the reference's ``repro.core.pregather``, streamed-mode helpers
+(a tiered FeatureStore) included; the plans are bitwise equal to the
+reference's, and its per-vertex ``_reference_*`` oracles stay in the
+reference (the port's tests hold the two against each other).
 """
 from __future__ import annotations
 
@@ -346,5 +346,92 @@ def workspace_indices(hops: list[np.ndarray], shard: int,
             w[rem_pos] = plan.slot_map.lookup(shard,
                                               np.asarray(ids,
                                                          np.int64)[rem_pos])
+        out.append(w.astype(np.int32))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Streamed mode (repro_torch.features): compacted local region
+# ---------------------------------------------------------------------------
+
+def split_local_touched(needed_ids_per_shard: list[np.ndarray],
+                        owner: np.ndarray,
+                        l_max: int | None = None
+                        ) -> tuple[list[np.ndarray], int]:
+    """Per-shard sorted unique *locally-owned* ids an iteration touches.
+
+    Streamed plans (a tiered FeatureStore instead of a device-resident
+    table) cannot index the full local shard — only the iteration's
+    touched local rows are uploaded, compacted into the first ``l_max``
+    workspace rows. ``l_max`` is a budgeted dimension exactly like
+    ``r_max``: ``None`` sizes it to this iteration's need; a too-small
+    budget raises :class:`PlanOverflow("l_max")` for explicit re-bucketing.
+
+    Returns (local_ids_per_shard, l_max): ``local_ids_per_shard[s]`` is
+    sorted ascending, so global id ``local_ids_per_shard[s][k]`` lives in
+    workspace row ``k`` on shard s.
+    """
+    owner = np.asarray(owner)
+    loc: list[np.ndarray] = []
+    for s, ids in enumerate(needed_ids_per_shard):
+        ids = np.asarray(ids, np.int64).ravel()
+        u = np.unique(ids) if ids.size else np.zeros(0, np.int64)
+        loc.append(u[owner[u] == s] if u.size else u)
+    need = max(1, max((u.size for u in loc), default=1))
+    if l_max is None:
+        l_max = need
+    elif need > l_max:
+        raise PlanOverflow("l_max", need, int(l_max))
+    return loc, int(l_max)
+
+
+def stream_workspace_indices(hops: list[np.ndarray], shard: int,
+                             owner: np.ndarray,
+                             local_ids: np.ndarray,
+                             plan: GatherPlan) -> list[np.ndarray]:
+    """Streamed-mode analogue of :func:`workspace_indices`: locally-owned
+    ids map to their position in the shard's *compacted* touched-local
+    region (``local_ids``, sorted — position = searchsorted rank) instead
+    of a full-shard local row; remote ids resolve through the plan's
+    SlotMap as usual (the plan was built with ``local_rows = l_max``, so
+    remote slots already sit above the compacted region)."""
+    out = []
+    local_ids = np.asarray(local_ids, np.int64)
+    owner = np.asarray(owner)
+    sm = plan.slot_map
+    # dense fast path: one row translating BOTH local compaction and remote
+    # slots, amortized like workspace_indices' guard
+    row = None
+    V = sm.num_vertices
+    total = sum(np.asarray(ids).size for ids in hops)
+    if 0 < V <= _DENSE_LUT_MAX_VERTICES \
+            and (V <= (1 << 22) or V <= total * 16):
+        row = np.full(V, -1, np.int32)
+        row[local_ids] = np.arange(local_ids.size, dtype=np.int32)
+        row[sm.shard_ids(shard)] = sm.shard_slots(shard).astype(np.int32)
+    for ids in hops:
+        ids = np.asarray(ids, np.int64)
+        if row is not None:
+            w = row[ids]
+            if w.size and int(w.min()) < 0:
+                raise KeyError(f"ids not in shard {shard}'s touched set: "
+                               f"{ids[w < 0][:8]}")
+            out.append(w)
+            continue
+        is_local = owner[ids] == shard
+        w = np.zeros(ids.size, np.int64)
+        lpos = np.nonzero(is_local)[0]
+        if lpos.size:
+            p = np.searchsorted(local_ids, ids[lpos])
+            bad = (p >= local_ids.size) \
+                | (local_ids[np.minimum(p, local_ids.size - 1)]
+                   != ids[lpos])
+            if np.any(bad):
+                raise KeyError(f"ids not in shard {shard}'s touched set: "
+                               f"{ids[lpos][bad][:8]}")
+            w[lpos] = p
+        rpos = np.nonzero(~is_local)[0]
+        if rpos.size:
+            w[rpos] = sm.lookup(shard, ids[rpos])
         out.append(w.astype(np.int32))
     return out

@@ -15,9 +15,8 @@ shapes:
     one step, no migration — fast but biased batches.
 
 A copy of the reference's ``repro.core.strategies``: ``plan_iteration``
-(training) and ``plan_inference`` (serving) give plans bitwise equal to the
-reference's. Streamed plans (a tiered FeatureStore, where features ride in
-the plan) are not ported yet (ROADMAP Queue 1 item 10).
+(training, resident or streamed from a tiered FeatureStore) and
+``plan_inference`` (serving) give plans bitwise equal to the reference's.
 """
 from __future__ import annotations
 
@@ -30,7 +29,10 @@ import numpy as np
 from repro_torch.core.micrograph import (AssignmentMatrix, hopgnn_assignment,
                                          lo_assignment,
                                          model_centric_assignment)
-from repro_torch.core.pregather import (PlanOverflow, build_gather_plan,
+from repro_torch.core.pregather import (GatherPlan, PlanOverflow,
+                                        build_gather_plan,
+                                        split_local_touched,
+                                        stream_workspace_indices,
                                         workspace_indices)
 from repro_torch.graph.sampler import TreeBlock, sample_tree_block
 from repro_torch.graph.structs import CSRGraph
@@ -115,6 +117,18 @@ class IterationPlan:
     #                                      prefetch thread; the engine's
     #                                      prepare fast path uses it verbatim
 
+    # --- streamed feature path (repro_torch.features; tiered store) ---
+    streamed: bool = False               # features ride in the plan, not in
+    #                                      a device-resident table
+    l_max: int = 0                       # compacted touched-local region
+    #                                      height (budgeted like r_max)
+    feat_local: Optional[np.ndarray] = None   # (N, l_max, d) touched local
+    feat_fetch: Optional[np.ndarray] = None   # (N, P, r_max, d) miss rows,
+    #                                      gathered host-side through the
+    #                                      store's tier chain
+    tier_stats: Optional[dict] = None    # per-tier rows/bytes this plan's
+    #                                      host gathers resolved through
+
     def miss_rate(self) -> float:
         """Remote fraction of unique feature rows (paper Fig. 14)."""
         return self.remote_rows_exact / max(self.unique_rows, 1)
@@ -133,6 +147,13 @@ class IterationPlan:
 
     def device_args(self):
         """The tree of numpy arrays handed to the device engine."""
+        if self.streamed:
+            # features travel WITH the plan; no req (nothing to exchange —
+            # the host gather through the tier chain already happened)
+            return dict(feat_local=self.feat_local,
+                        feat_fetch=self.feat_fetch,
+                        hop_idx=list(self.hop_idx), labels=self.labels,
+                        weights=self.weights)
         return dict(req=self.req, step_req=self.step_req,
                     hop_idx=list(self.hop_idx), labels=self.labels,
                     weights=self.weights)
@@ -186,7 +207,8 @@ def plan_iteration(graph: CSRGraph,
                    c_max: Optional[int] = None,
                    cache_index=None,
                    executor: Optional[Executor] = None,
-                   feature_store=None) -> IterationPlan:
+                   feature_store=None,
+                   l_max: Optional[int] = None) -> IterationPlan:
     """Compile one training iteration into an IterationPlan.
 
     ``sample_seed`` switches to stateless per-root-deterministic sampling:
@@ -211,17 +233,26 @@ def plan_iteration(graph: CSRGraph,
     compile-once contract extended to cache growth).
 
     ``feature_store``: a repro_torch.features.FeatureStore. A *resident*
-    store is the classic dense table and planning is unchanged; a *tiered*
-    one (streamed mode, features host-gathered into the plan) raises
-    ``NotImplementedError`` until that mode is ported (ROADMAP Queue 1 item 10).
+    store is equivalent to the classic dense table and planning is
+    unchanged. A *tiered* store switches the plan to **streamed** mode: no
+    device table exists, so the iteration's needed feature rows are
+    host-gathered here through the store's tier chain (hot tier → mmap
+    disk) into per-plan blocks — a compacted ``(N, l_max, d)``
+    touched-local region plus the ``(N, P, r_max, d)`` miss rows — and the
+    workspace indices target ``[local_compact | cached | fetched]``.
+    ``l_max`` budgets the compacted region exactly like ``r_max`` budgets
+    fetches (PlanOverflow on overflow). Streamed mode requires
+    ``pregather=True`` (per-step exchanges presume a device-resident table
+    to serve from).
     """
-    if feature_store is not None and not feature_store.resident:
-        raise NotImplementedError(
-            "streamed plans from a tiered FeatureStore are not ported yet "
-            "(ROADMAP Queue 1 item 10, streamed training)")
     if cache_index is not None and c_max is not None \
             and cache_index.c_max > c_max:
         raise PlanOverflow("c_max", int(cache_index.c_max), int(c_max))
+    streamed = feature_store is not None and not feature_store.resident
+    if streamed and not pregather:
+        raise ValueError("streamed feature plans (tiered FeatureStore) "
+                         "require pregather=True — the per-step exchange "
+                         "serves from a device-resident table")
     if sample_seed is None:
         rng = rng or np.random.default_rng(0)
     n = len(roots_per_model)
@@ -290,8 +321,14 @@ def plan_iteration(graph: CSRGraph,
 
     if pregather:
         needed = [shard_needed(s, range(T)) for s in range(n)]
-        plan = build_gather_plan(needed, owner, local_idx, n, local_rows,
-                                 r_max, cache=cache_index)
+        if streamed:
+            local_ids, l_max_eff = split_local_touched(needed, owner, l_max)
+            plan = build_gather_plan(needed, owner, local_idx, n, l_max_eff,
+                                     r_max, cache=cache_index)
+        else:
+            local_ids, l_max_eff = None, 0
+            plan = build_gather_plan(needed, owner, local_idx, n, local_rows,
+                                     r_max, cache=cache_index)
         req, step_req = plan.req, None
         r_max_eff = plan.r_max
         c_max_eff = plan.c_max
@@ -299,8 +336,11 @@ def plan_iteration(graph: CSRGraph,
         def translate_shard(s: int) -> None:
             # writes land in disjoint (s, t) slices — thread-safe fan-out
             for t in range(T):
-                widx = workspace_indices(blocks[s][t].hops, s, owner,
-                                         local_idx, plan)
+                widx = (stream_workspace_indices(blocks[s][t].hops, s,
+                                                 owner, local_ids[s], plan)
+                        if streamed else
+                        workspace_indices(blocks[s][t].hops, s, owner,
+                                          local_idx, plan))
                 for h in range(num_layers + 1):
                     hop_idx[h][s, t] = widx[h]
 
@@ -312,6 +352,11 @@ def plan_iteration(graph: CSRGraph,
         # cache-off planning hot path with the copies
         remote_ids = ([plan.slot_map.shard_ids(s).copy() for s in range(n)]
                       if cache_index is not None else None)
+        if streamed:
+            feat_local, feat_fetch, tier_stats = _stream_features(
+                feature_store, plan, local_ids, local_idx, l_max_eff, n)
+        else:
+            feat_local = feat_fetch = tier_stats = None
     else:
         # per-step exchange: dedup within a step only — redundant fetches
         # across steps remain (that is exactly what §5.2 eliminates). A
@@ -349,6 +394,8 @@ def plan_iteration(graph: CSRGraph,
         _pmap(executor, translate_step, list(range(T)),
               label="plan.translate")
         req = np.zeros((n, n, r_max_eff), np.int32)  # unused in per-step mode
+        l_max_eff = 0
+        feat_local = feat_fetch = tier_stats = None
         remote_exact = sum(p.remote_rows_exact() for p in step_plans)
         cache_hit_rows = sum(p.cache_hit_rows() for p in step_plans)
         remote_ids = ([
@@ -393,7 +440,48 @@ def plan_iteration(graph: CSRGraph,
         c_max=c_max_eff,
         cache_version=(cache_index.version if cache_index is not None
                        else -1),
-        cache_hit_rows=cache_hit_rows, remote_ids=remote_ids)
+        cache_hit_rows=cache_hit_rows, remote_ids=remote_ids,
+        streamed=streamed, l_max=l_max_eff,
+        feat_local=feat_local, feat_fetch=feat_fetch, tier_stats=tier_stats)
+
+
+def _stream_features(store, plan: GatherPlan, local_ids: list, local_idx,
+                     l_max: int, n: int):
+    """Host-gather a streamed plan's feature blocks through the store's
+    tier chain. Padded rows stay zero (padded slots are never read — the
+    same contract as padded request slots in the exchange path)."""
+    d = store.feature_dim
+    snap = store.stats.snapshot()
+    feat_local = np.zeros((n, l_max, d), store.dtype)
+    for s in range(n):
+        k = int(local_ids[s].size)
+        if k:
+            feat_local[s, :k] = store.gather(s, local_idx[local_ids[s]])
+    feat_fetch = np.zeros((n, n, plan.r_max, d), store.dtype)
+    cnt = plan.req_count
+    for p in range(n):
+        segs = [(s, int(cnt[s, p])) for s in range(n) if cnt[s, p]]
+        if not segs:
+            continue
+        # one tier-chain gather per OWNING shard: all requesting shards'
+        # misses from peer p are batched (better hot-tier locality, one
+        # counted gather)
+        cat = np.concatenate([plan.req[s, p, :c] for s, c in segs]
+                             ).astype(np.int64)
+        rows = store.gather(p, cat)
+        off = 0
+        for s, c in segs:
+            feat_fetch[s, p, :c] = rows[off:off + c]
+            off += c
+    delta = store.stats.delta(snap)
+    rb = store.row_bytes
+    tier_stats = dict(tier1_rows=int(delta.t1_rows),
+                      tier2_rows=int(delta.t2_rows),
+                      tier1_bytes=int(delta.t1_rows) * rb,
+                      tier2_bytes=int(delta.t2_rows) * rb,
+                      upload_bytes=int(feat_local.nbytes
+                                       + feat_fetch.nbytes))
+    return feat_local, feat_fetch, tier_stats
 
 
 @dataclasses.dataclass

@@ -151,32 +151,45 @@ class ShapeBudget:
 
         ``planner`` defaults to :func:`repro_torch.core.plan_iteration`;
         any callable with the same keyword contract (and raising
-        :class:`repro_torch.core.PlanOverflow` on overflow) works. Streamed
-        plans (``l_max``) are not ported yet, so only resident plans are
-        budgeted here.
+        :class:`repro_torch.core.PlanOverflow` on overflow) works.
         """
         from repro_torch.core.pregather import PlanOverflow
         if planner is None:
             from repro_torch.core.strategies import plan_iteration as planner
         key = self._pattern_key(plan_kwargs)
+        fs = plan_kwargs.get("feature_store")
+        streamed = fs is not None and not getattr(fs, "resident", True)
         bucket = self.buckets.get(key)
+        need_l = streamed and key not in self.l_buckets
+        probe = None
+
+        def _probe():
+            # First plan of this pattern: probe exact sizes once, then
+            # bucket. The probe is host-side numpy only — it never touches
+            # the device engine, so it costs one extra planning pass per
+            # *pattern* and nothing after. (In streamed mode the probe does
+            # pay a host feature gather; still once per pattern.)
+            self.probes += 1
+            return planner(**plan_kwargs)
+
         if bucket is None:
             seed_bp, seed_rm = self._seed
-            if seed_bp and seed_rm:
+            if seed_bp and seed_rm and not need_l:
                 bucket = [seed_bp, seed_rm]
             else:
-                # First plan of this pattern: probe exact sizes once, then
-                # bucket. The probe is host-side numpy only — it never
-                # touches the device engine, so it costs one extra planning
-                # pass per *pattern* and nothing after.
-                self.probes += 1
-                probe = planner(**plan_kwargs)
+                probe = _probe()
                 bucket = [next_bucket(probe.batch_pad,
                                       max(self.min_batch_pad, seed_bp)),
                           next_bucket(int(probe.r_max
                                           * max(self.r_max_headroom, 1.0)),
                                       max(self.min_r_max, seed_rm))]
             self.buckets[key] = bucket
+        if need_l:
+            if probe is None:
+                probe = _probe()
+            self.l_buckets[key] = next_bucket(
+                int(probe.l_max * max(self.l_max_headroom, 1.0)),
+                self.min_l_max)
         self._active_key = key
         self.batch_pad, self.r_max = bucket
         # c_max ceiling only applies to cache-aware plans; passing 0/None
@@ -184,10 +197,14 @@ class ShapeBudget:
         cache_kw = {}
         if plan_kwargs.get("cache_index") is not None:
             cache_kw = dict(c_max=self.c_max or None)
+        stream_kw = {}
+        if streamed:
+            self.l_max = self.l_buckets[key]
+            stream_kw = dict(l_max=self.l_max)
         for _ in range(self.max_rebuckets + 1):
             try:
                 out = planner(**plan_kwargs, batch_pad=self.batch_pad,
-                              r_max=self.r_max, **cache_kw)
+                              r_max=self.r_max, **cache_kw, **stream_kw)
                 self.plans_built += 1
                 if getattr(out, "c_max", 0) > self.c_max:
                     self.c_max = int(out.c_max)    # first learn, no rebucket
@@ -196,6 +213,8 @@ class ShapeBudget:
                 self.grow(e.field, e.needed)
                 if e.field == "c_max":
                     cache_kw = dict(c_max=self.c_max)
+                elif e.field == "l_max":
+                    stream_kw = dict(l_max=self.l_max)
         raise RuntimeError(
             f"shape budget failed to converge after {self.max_rebuckets} "
             f"re-buckets (batch_pad={self.batch_pad}, r_max={self.r_max})")

@@ -30,6 +30,15 @@ The port of ``repro.train.loop``:
   additionally takes the grads-then-update path. The parameters and
   moments are updated in place, so the Trainer copies caller-supplied
   initial parameters once and always continues from its own.
+* **Tiered features** (:mod:`repro_torch.features`) — every feature read
+  goes through one ``FeatureStore``. A resident store is uploaded once as
+  the device table; a tiered one (host hot tier over mmap disk shards)
+  switches the Trainer to streamed mode: no device table, each plan
+  carries its own feature blocks gathered through the tiers on the
+  prefetch thread, and the next epoch's rows are promoted tier 2 → tier 1
+  at the epoch boundary (the readahead forecast runs on the cache thread
+  during the epoch before). Streamed training is bitwise the resident
+  training.
 * **Eval + checkpoint/resume** — epoch-boundary checkpoints of
   (params, optimizer state, merge pattern, budget state) in the
   reference's crash-atomic npz layout (:mod:`repro_torch.checkpoint`), and
@@ -41,7 +50,10 @@ The port of ``repro.train.loop``:
   background threads, the comm retry guard around every dispatch, the
   stall deadline on plan futures, a NaN/Inf guard on each synced loss
   window, and the degradation ladder (``uploader_off``,
-  ``pipeline_to_sync``, ``cache_off``). Every recovery replays the epoch
+  ``pipeline_to_sync``, ``cache_off``, and for a tiered store
+  ``resident_gather``). Scheduled ``disk_corrupt`` faults are injected at
+  the epoch boundary, before readahead, so the store's checksums catch
+  and repair them. Every recovery replays the epoch
   deterministically, so an absorbed fault leaves losses and parameters
   bit-identical to the fault-free run.
 * **Membership** (:mod:`repro_torch.membership`, on with the default
@@ -51,11 +63,8 @@ The port of ``repro.train.loop``:
   checkpoint) or by elastic shrink (``redistribute``/``adopt``).
 
 Entry points run on ``cuda`` unless ``device="cpu"`` is given. Not ported
-yet, each raising ``NotImplementedError`` that names its ROADMAP Queue 1
-item: a device ``mesh`` (item 8) and a tiered FeatureStore (streamed
-training, item 10) — and with the latter the ``readahead``/``store`` rungs
-of the ladder and the ``disk_corrupt`` fault kind, which corrupts the
-streamed store's backing tier.
+yet: a device ``mesh``, which raises ``NotImplementedError`` naming ROADMAP
+Queue 1 item 8.
 
 Typical use::
 
@@ -135,6 +144,15 @@ class EpochStats:
     pipelined: bool = False     # this epoch ran the non-blocking fused loop
     dispatch_s: float = 0.0     # host time inside dispatch calls (pipelined
     #                             mode only)
+    # --- tiered feature store (zeros when resident) ---
+    streamed: bool = False      # out-of-core mode: plans carry features
+    tier1_rows: int = 0         # host hot-tier rows served to plan gathers
+    tier2_rows: int = 0         # backing/mmap rows served (hot-tier misses)
+    tier1_bytes: int = 0
+    tier2_bytes: int = 0
+    upload_bytes: int = 0       # plan-carried feature bytes shipped to dev
+    readahead_s: float = 0.0    # blocking tier-2→tier-1 install time at the
+    #                             epoch boundary (forecast overlap excluded)
     # --- resilience (zeros when the policy is off) ---
     faults_injected: int = 0    # FaultPlan firings during this epoch
     comm_retries: int = 0       # transient exchange failures re-issued
@@ -143,6 +161,10 @@ class EpochStats:
     epoch_attempts: int = 1     # 1 = clean; >1 = replays after recovery
     rollbacks: int = 0          # NaN/Inf rollbacks to the epoch snapshot
     degradations: tuple = ()    # ladder rungs taken while running this epoch
+    # --- feature integrity (the store's crc32 checks) ---
+    crc_failures: int = 0       # backing-tier checksum mismatches this epoch
+    repaired_rows: int = 0      # rows re-gathered from the source after a
+    #                             quarantined chunk failed verification
     # --- membership (static world: generation 0, 0 recoveries) ---
     membership_generation: int = 0   # world generation at epoch end
     membership_recoveries: int = 0   # confirmed peer deaths recovered while
@@ -197,18 +219,23 @@ class Trainer:
         self.owner = np.asarray(owner)
         self.local_idx = np.asarray(local_idx)
         # every feature read goes through one store: a plain
-        # (N, local_rows, d) array is wrapped resident
+        # (N, local_rows, d) array is wrapped resident; a tiered store
+        # switches the engine to streamed mode (plans carry their feature
+        # blocks, no device table)
         if isinstance(table, FeatureStore):
             self.store = table.bind(self.owner, self.local_idx)
         else:
             self.store = FeatureStore.from_array(
                 np.asarray(table), owner=self.owner,
                 local_idx=self.local_idx)
-        if not self.store.resident:
-            raise _not_ported("a tiered FeatureStore (streamed training)",
-                              "10, streamed training")
+        self.streamed = not self.store.resident
+        if self.streamed and not pregather:
+            raise ValueError(
+                "a tiered FeatureStore requires pregather=True: per-step "
+                "exchange gathers from a device-resident table, which "
+                "out-of-core mode exists to avoid")
         # device-resident once, not re-uploaded per iteration
-        self.table = engine.upload(self.store.as_dense(), self.device)
+        self.table = self._device_table()
         self.cfg = cfg
         self.optimizer = optimizer or adamw(1e-3)
         self.pipeline = bool(pipeline)
@@ -288,6 +315,14 @@ class Trainer:
                     cache_policy, graph=self.graph, owner=self.owner,
                     num_shards=self.num_shards)
                 self._cache_prefetcher = self._make_prefetcher()
+        # --- tiered-store readahead (streamed mode): the exact next-epoch
+        # forecast that refreshes the device cache also drives tier-2 →
+        # tier-1 promotion, so a prefetcher exists whenever the store is
+        # tiered, cache layer or not
+        self._readahead_fut = None
+        self._readahead_enabled = self.streamed and self.store.hot_rows > 0
+        if self._readahead_enabled and self._cache_prefetcher is None:
+            self._cache_prefetcher = self._make_prefetcher()
         # --- resilience (None/True -> the default policy, False -> off).
         # The default policy is always on and cheap: one params/opt
         # snapshot per epoch, a deque peek per dispatch, an isfinite on
@@ -332,6 +367,13 @@ class Trainer:
     @property
     def num_shards(self) -> int:
         return self.store.num_shards
+
+    def _device_table(self) -> Optional[torch.Tensor]:
+        """The resident store's (N, local_rows, d) table on the device;
+        None for a tiered store (streamed mode has no device table)."""
+        if not self.store.resident:
+            return None
+        return engine.upload(self.store.as_dense(), self.device)
 
     def _roots_for(self, epoch: int, it: int, batch_per_model: int):
         if self.root_fn is not None:
@@ -386,6 +428,7 @@ class Trainer:
             fanout=self.cfg.fanout, strategy=self.strategy,
             pregather=self.pregather, assignment=assignment,
             cache_index=cache_index,
+            feature_store=self.store if self.streamed else None,
             executor=self._get_plan_pool(),
             sample_seed=self.sample_seed_base + epoch * 10_000 + it)
         if self._cache_policy is not None and not self._cache_policy.static \
@@ -522,6 +565,56 @@ class Trainer:
             self.cache_store.device_table
             return time.perf_counter() - t0
 
+    # ------------------------------------------------------------------
+    # Tiered-store readahead (tier 2 -> tier 1)
+    # ------------------------------------------------------------------
+
+    def _readahead_compute(self, epoch: int, iters: int):
+        """Cache-thread job: the per-OWNING-shard (ids, counts) forecast of
+        every row each shard will *serve* next epoch — exact under the
+        deterministic sampler, the same replay the cache refresh uses."""
+        with obs_span("features.readahead.forecast", epoch=epoch):
+            _rfaults.sleep_point("readahead", epoch, -1)
+            _rfaults.raise_if_thread("readahead", epoch, -1)
+            return self._cache_prefetcher.epoch_touched(epoch, iters)
+
+    def _readahead_install(self, touched) -> int:
+        """Swap the forecast rows into each shard's host hot tier. Sorted by
+        backing row so the store's unique() keeps counts aligned."""
+        installed = 0
+        for p, (ids, cnt) in enumerate(touched):
+            rows = self.local_idx[ids]
+            order = np.argsort(rows, kind="stable")
+            installed += self.store.readahead(p, rows[order],
+                                              counts=cnt[order])
+        return installed
+
+    def _readahead_epoch_begin(self, epoch: int, epochs: int, iters: int,
+                               batch_per_model: int, cache_exec) -> float:
+        """Promote next epoch's rows at the epoch boundary — no plan is in
+        flight then, so the wholesale hot-tier swap never races a gather
+        (the store's thread contract). The forecast for epoch e+1 runs on
+        the cache thread *during* epoch e; only the first epoch (and the
+        install itself) block. Runs BEFORE the cache refresh so its gathers
+        hit the freshly warmed hot tier. Returns the blocking seconds."""
+        if not self._readahead_enabled:
+            return 0.0
+        with obs_span("features.readahead", epoch=epoch):
+            t0 = time.perf_counter()
+            self._prefetch_batch = batch_per_model
+            if self._readahead_fut is not None:
+                touched = self._readahead_fut.result()
+                self._readahead_fut = None
+                self._readahead_install(touched)
+            else:
+                self._readahead_install(
+                    self._readahead_compute(epoch, iters))
+            if cache_exec is not None and epoch + 1 < epochs:
+                self._readahead_fut = self._submit_site(
+                    cache_exec, "readahead", self._readahead_compute,
+                    epoch + 1, iters)
+            return time.perf_counter() - t0
+
     def _submit_site(self, exec_, site: str, fn, *args):
         """Submit a background job under supervision (site and (epoch, it)
         context recorded at raise time; see repro_torch.resilience)."""
@@ -545,9 +638,15 @@ class Trainer:
                     f"vs store "
                     f"{store.version if store is not None else 'absent'}")
             return store.device_table
-        return engine.empty_cache_table(self.num_shards,
-                                        self.store.feature_dim,
-                                        self.table.dtype, self.device)
+        return self._empty_table()
+
+    def _empty_table(self) -> torch.Tensor:
+        """The shared (N, 0, d) zero-width device table: it stands in for a
+        disabled cache and, in streamed mode, for the absent feature
+        table."""
+        return engine.empty_cache_table(
+            self.num_shards, self.store.feature_dim,
+            engine.torch_dtype(self.store.dtype), self.device)
 
     def train_step(self, plan: IterationPlan):
         """Grads, then the optimizer update as a separate call (the
@@ -555,7 +654,8 @@ class Trainer:
         cache_tab = self._cache_table_for(plan)
         grads, loss = engine.run_iteration(self.params, self.table, plan,
                                            self.cfg, cache=cache_tab,
-                                           fold_returns=self.fold_returns)
+                                           fold_returns=self.fold_returns,
+                                           device=self.device)
         self.params, self.opt_state = self.optimizer.update(
             grads, self.opt_state, self.params)
         self.global_step += 1
@@ -569,9 +669,11 @@ class Trainer:
         fn = engine.get_compiled_train_step(
             self.cfg, plan.pregather, self.optimizer,
             fold_returns=engine.resolve_fold_returns(plan,
-                                                     self.fold_returns))
+                                                     self.fold_returns),
+            streamed=plan.streamed)
         table, cache_tab, dev, denom = engine.prepare_iteration_args(
-            self.table, plan, cache_tab, fault_point=fault_point)
+            self.table, plan, cache_tab, device=self.device,
+            fault_point=fault_point)
         self.params, self.opt_state, loss = fn(
             self.params, self.opt_state, table, cache_tab, dev, denom)
         self.global_step += 1
@@ -588,8 +690,8 @@ class Trainer:
                     or p.num_steps != p0.num_steps):
                 raise ValueError("stacked plans must share mode, cache "
                                  "version, and merge pattern")
-            split |= ((p.batch_pad, p.r_max, p.c_max)
-                      != (p0.batch_pad, p0.r_max, p0.c_max))
+            split |= ((p.batch_pad, p.r_max, p.c_max, p.l_max)
+                      != (p0.batch_pad, p0.r_max, p0.c_max, p0.l_max))
         # the host comm boundary of every plan in the group, before any
         # in-place update: the retry guard reruns the whole group, so a
         # fault on a later plan must not find an earlier one applied
@@ -604,11 +706,11 @@ class Trainer:
         fn = engine.get_compiled_train_step(
             self.cfg, p0.pregather, self.optimizer,
             fold_returns=engine.resolve_fold_returns(p0, self.fold_returns),
-            stacked=True)
+            stacked=True, streamed=p0.streamed)
         devs, denoms = stack_committed(plans, self.device)
+        table = self.table if self.table is not None else self._empty_table()
         self.params, self.opt_state, losses = fn(
-            self.params, self.opt_state, self.table, cache_tab, devs,
-            denoms)
+            self.params, self.opt_state, table, cache_tab, devs, denoms)
         self.global_step += len(plans)
         return self._maybe_poison(plans, losses)
 
@@ -720,9 +822,9 @@ class Trainer:
         """Take one degradation-ladder rung for a failing site. Every rung
         lands on a mode that is bit-identical to the one it leaves (the
         pipelined and synchronous loops run the same operations in the
-        same order; a cache hit reads the row a fetch would) — recovery
-        costs throughput, never numerics. (The streamed store's
-        ``readahead``/``store`` rung arrives with streamed training.)"""
+        same order; a cache hit reads the row a fetch would; a hot-tier row
+        equals its backing row) — recovery costs throughput, never
+        numerics."""
         if site == "uploader" and self._uploader is not None:
             # plans stop committing; dispatch uploads them inline
             self._uploader = None
@@ -740,6 +842,15 @@ class Trainer:
                 self._cache_policy = None
                 self._cache_fut = None
                 return "cache_off"
+            return None
+        if site in ("readahead", "store") and self.streamed:
+            # (a resident store has no hot tier to bypass: no rung)
+            if self._readahead_enabled or not self.store.hot_bypass:
+                # plan gathers read the backing tier directly
+                self._readahead_enabled = False
+                self._readahead_fut = None
+                self.store.bypass_hot(True)
+                return "resident_gather"
             return None
         return None
 
@@ -759,9 +870,10 @@ class Trainer:
         self._supervisor.drain()
         if self._uploader is not None:
             self._uploader.drain()
-        # abandon the in-flight epoch-boundary future: the replay
-        # recomputes it deterministically at its own boundary
+        # abandon the in-flight epoch-boundary futures: the replay
+        # recomputes them deterministically at its own boundary
         self._cache_fut = None
+        self._readahead_fut = None
         # membership: a peer-attributed failure goes through detection
         # first — a confirmed death is a world change, not a site failure
         if self.membership is not None and policy.membership:
@@ -850,7 +962,8 @@ class Trainer:
         self.part, self.owner = wr.part, wr.owner
         self.local_idx = wr.local_idx
         self.store = self.store.reshard(wr.part, wr.num_shards)
-        self.table = engine.upload(self.store.as_dense(), self.device)
+        self.streamed = not self.store.resident
+        self.table = self._device_table()
         # merge controller: the base rotation assignment is world-shaped;
         # the §5.3 examination restarts against the new world
         self.controller = None
@@ -867,8 +980,12 @@ class Trainer:
                 self.cache_policy_name, graph=self.graph, owner=self.owner,
                 num_shards=self.num_shards)
         self._cache_fut = None
-        self._cache_prefetcher = (self._make_prefetcher()
-                                  if self.cache_store is not None else None)
+        self._readahead_fut = None
+        self._readahead_enabled = self.streamed and self.store.hot_rows > 0
+        self._cache_prefetcher = (
+            self._make_prefetcher()
+            if self.cache_store is not None or self._readahead_enabled
+            else None)
         if self._uploader is not None:
             self._uploader = PlanUploader(budget=self.budget,
                                           device=self.device,
@@ -894,12 +1011,14 @@ class Trainer:
     def _attempt_epoch(self, epoch: int, start_epoch: int, epochs: int,
                        iters: int, batch_per_model: int, cache_exec,
                        submit):
-        """One try at one epoch: the boundary work, the iteration loop,
-        then the NaN/Inf guard over the epoch's losses."""
-        if _rfaults.take("disk_corrupt", epoch):
-            raise _not_ported("the disk_corrupt fault (it corrupts the "
-                              "streamed store's backing tier)",
-                              "10, streamed training")
+        """One try at one epoch: inject any scheduled epoch-boundary disk
+        faults (BEFORE readahead, so the checksum verification sees them),
+        the boundary work, the iteration loop, then the NaN/Inf guard over
+        the epoch's losses."""
+        for sp in _rfaults.take("disk_corrupt", epoch):
+            _rfaults.inject_disk_corruption(self.store, sp)
+        readahead_s = self._readahead_epoch_begin(
+            epoch, epochs, iters, batch_per_model, cache_exec)
         refresh_s = self._cache_epoch_begin(
             epoch, start_epoch, epochs, iters, batch_per_model, cache_exec)
         if self.pipeline:
@@ -910,7 +1029,7 @@ class Trainer:
         else:
             res = self._epoch_sync(epoch, iters, batch_per_model, submit)
         self._check_finite(res.losses, epoch, iters - 1)
-        return res, refresh_s
+        return res, readahead_s, refresh_s
 
     _RECOVERABLE = (BackgroundError, StallError, CommTimeout, NonFiniteLoss,
                     InjectedFault, StaleGeneration)
@@ -924,10 +1043,10 @@ class Trainer:
         same (epoch, it, seed) plans rebuild, so an absorbed fault leaves
         losses and parameters bit-identical to a fault-free run."""
         if self.resilience is None:
-            res, rf = self._attempt_epoch(epoch, start_epoch, epochs, iters,
-                                          batch_per_model, cache_exec,
-                                          submit)
-            return res, rf, {}
+            res, ra, rf = self._attempt_epoch(epoch, start_epoch, epochs,
+                                              iters, batch_per_model,
+                                              cache_exec, submit)
+            return res, ra, rf, {}
         self._comm_counters.reset()
         bg0 = self._supervisor.errors_recorded
         fp = _rfaults.active_plan()
@@ -941,7 +1060,7 @@ class Trainer:
             attempts += 1
             t_attempt = time.perf_counter()
             try:
-                res, rf = self._attempt_epoch(
+                res, ra, rf = self._attempt_epoch(
                     epoch, start_epoch, epochs, iters, batch_per_model,
                     cache_exec, submit)
                 break
@@ -976,7 +1095,7 @@ class Trainer:
                 "bg_errors": self._supervisor.errors_recorded - bg0,
                 "membership_recoveries":
                     self.membership_recoveries - mr0}
-        return res, rf, meta
+        return res, ra, rf, meta
 
     # ------------------------------------------------------------------
     # Epoch loop
@@ -992,6 +1111,7 @@ class Trainer:
         traced: list[bool] = []
         losses: list[float] = []
         remote, num_steps, cache_hits = 0, 0, 0
+        t1 = t2 = up = 0
         try:
             for it in range(iters):
                 with obs_span("plan.wait", epoch=epoch, it=it):
@@ -1011,6 +1131,10 @@ class Trainer:
                 traced.append(engine.trace_count() > tc0)
                 remote += plan.remote_rows_exact
                 cache_hits += plan.cache_hit_rows
+                if plan.tier_stats:
+                    t1 += plan.tier_stats["tier1_rows"]
+                    t2 += plan.tier_stats["tier2_rows"]
+                    up += plan.tier_stats["upload_bytes"]
                 num_steps = plan.num_steps
         except BaseException as e:
             self._abandon([fut], e)
@@ -1020,7 +1144,8 @@ class Trainer:
             losses=losses, wall_s=time.perf_counter() - t_epoch,
             steady_iter_s=float(np.mean(steady)) if steady else None,
             dispatch_s=0.0, traces=int(sum(traced)), remote_rows=remote,
-            cache_hit_rows=cache_hits, num_steps=num_steps)
+            cache_hit_rows=cache_hits, num_steps=num_steps,
+            tier1_rows=t1, tier2_rows=t2, upload_bytes=up)
 
     def fit(self, epochs: int, iters_per_epoch: int,
             batch_per_model: int = 16, eval_every: int = 0,
@@ -1064,16 +1189,23 @@ class Trainer:
                                           device=self.device,
                                           view=self.membership)
         # the cache refresh computation gets its own thread: it must not
-        # block the plan double-buffer (and vice versa)
+        # block the plan double-buffer (and vice versa). The tiered store's
+        # readahead forecast shares it (both are epoch-boundary jobs on the
+        # same deterministic replay; the single worker serializes them).
+        need_cache_thread = (self.cache_enabled and self.cache_prefetch
+                             and not self._cache_policy.static)
         cache_exec = (ThreadPoolExecutor(max_workers=1,
                                          thread_name_prefix="cache")
-                      if (self.cache_enabled and self.cache_prefetch
-                          and not self._cache_policy.static) else None)
+                      if need_cache_thread or self._readahead_enabled
+                      else None)
         try:
             for epoch in range(start_epoch, epochs):
-                res, refresh_s, rmeta = self._epoch_with_recovery(
-                    epoch, start_epoch, epochs, iters_per_epoch,
-                    batch_per_model, cache_exec, submit)
+                crc0 = (self.store.stats.crc_failures,
+                        self.store.stats.repaired_rows)
+                res, readahead_s, refresh_s, rmeta = \
+                    self._epoch_with_recovery(
+                        epoch, start_epoch, epochs, iters_per_epoch,
+                        batch_per_model, cache_exec, submit)
                 compile_free = res.steady_iter_s is not None
                 steady_iter = (res.steady_iter_s if compile_free
                                else res.wall_s / iters_per_epoch)
@@ -1097,7 +1229,11 @@ class Trainer:
                     / max(res.cache_hit_rows + res.remote_rows, 1),
                     cache_bytes_saved=res.cache_hit_rows * row_bytes,
                     cache_refresh_s=refresh_s, pipelined=self.pipeline,
-                    dispatch_s=res.dispatch_s,
+                    dispatch_s=res.dispatch_s, streamed=self.streamed,
+                    tier1_rows=res.tier1_rows, tier2_rows=res.tier2_rows,
+                    tier1_bytes=res.tier1_rows * row_bytes,
+                    tier2_bytes=res.tier2_rows * row_bytes,
+                    upload_bytes=res.upload_bytes, readahead_s=readahead_s,
                     faults_injected=rmeta.get("faults_injected", 0),
                     comm_retries=rmeta.get("comm_retries", 0),
                     comm_timeouts=rmeta.get("comm_timeouts", 0),
@@ -1105,6 +1241,8 @@ class Trainer:
                     epoch_attempts=rmeta.get("epoch_attempts", 1),
                     rollbacks=rmeta.get("rollbacks", 0),
                     degradations=rmeta.get("degradations", ()),
+                    crc_failures=self.store.stats.crc_failures - crc0[0],
+                    repaired_rows=self.store.stats.repaired_rows - crc0[1],
                     membership_generation=(self.membership.generation
                                            if self.membership is not None
                                            else 0),
@@ -1121,6 +1259,10 @@ class Trainer:
                         + (f" cache-hit {100 * st.cache_hit_rate:.1f}%"
                            f" refresh {st.cache_refresh_s:.2f}s"
                            if self.cache_enabled else "")
+                        + (f" t1-rows {st.tier1_rows} t2-rows "
+                           f"{st.tier2_rows} readahead "
+                           f"{st.readahead_s:.2f}s"
+                           if self.streamed else "")
                         + ("" if st.compile_free else " (all-compile)")
                         + (f" attempts {st.epoch_attempts}"
                            + (f" degraded [{','.join(st.degradations)}]"
@@ -1136,6 +1278,7 @@ class Trainer:
             if cache_exec is not None:
                 cache_exec.shutdown(wait=False, cancel_futures=True)
                 self._cache_fut = None
+                self._readahead_fut = None
             self._close_plan_pool()
         return stats
 

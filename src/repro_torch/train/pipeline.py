@@ -17,17 +17,19 @@ The port of ``repro.train.pipeline``. Four cooperating pieces:
 * **Plan upload off the critical path** (:class:`PlanUploader`) — the plan
   prefetch thread copies plan i+1's device args to the card while plan i
   executes and stamps the plan (``plan.committed``), so the engine's
-  argument fast path skips the upload. On CUDA the arrays are staged in
-  pinned host memory and copied with ``non_blocking=True`` on a side
-  stream (a non-blocking copy from pageable memory would be synchronous
-  and end the overlap); an event recorded after the copies is what the
-  compute stream waits on at dispatch, where each committed tensor is also
-  marked as used on the compute stream (``record_stream``), so the caching
-  allocator never hands its memory to a later upload while the device
-  still reads it. The staging blocks come from PyTorch's pinned-memory
-  allocator, which records the copy on the side stream and does not reuse
-  a block until that copy is done. Every plan's shapes are checked
-  against its ShapeBudget bucket (a shape change would mean a new
+  argument fast path skips the upload. Every array of the plan's device
+  args goes this way, a streamed plan's feature blocks (``feat_local``,
+  ``feat_fetch``: the largest upload of all) included. On CUDA the arrays
+  are staged in pinned host memory and copied with ``non_blocking=True``
+  on a side stream (a non-blocking copy from pageable memory would be
+  synchronous and end the overlap); an event recorded after the copies is
+  what the compute stream waits on at dispatch, where each committed tensor
+  is also marked as used on the compute stream (``record_stream``), so the
+  caching allocator never hands its memory to a later upload while the
+  device still reads it. The staging blocks come from PyTorch's
+  pinned-memory allocator, which records the copy on the side stream and
+  does not reuse a block until that copy is done. Every plan's shapes are
+  checked against its ShapeBudget bucket (a shape change would mean a new
   signature), and a plan stamped under an older membership generation is
   refused before anything is staged. When an epoch is abandoned mid-flight
   (a fault), :meth:`PlanUploader.drain` waits for the side stream's last
@@ -126,13 +128,15 @@ class PlanUploader:
         if self.budget is not None:
             expect = self.budget.bucket_shapes(plan.num_steps)
             if expect is not None:
-                bp, rm, cm, _ = expect
+                bp, rm, cm, lm = expect
                 if (plan.batch_pad, plan.r_max) != (bp, rm) \
-                        or plan.c_max not in (0, cm):
+                        or plan.c_max not in (0, cm) \
+                        or plan.l_max not in (0, lm):
                     raise AssertionError(
                         f"plan shapes ({plan.batch_pad}, {plan.r_max}, "
-                        f"{plan.c_max}) drifted from budget bucket "
-                        f"({bp}, {rm}, {cm}) for pattern {plan.num_steps}")
+                        f"{plan.c_max}, {plan.l_max}) drifted from budget "
+                        f"bucket ({bp}, {rm}, {cm}, {lm}) for pattern "
+                        f"{plan.num_steps}")
         engine.check_plan_indices(plan)
         dev, denom, event = self._upload(plan)
         sig = engine._shape_sig(dev)
@@ -172,6 +176,10 @@ class EpochRunResult:
     remote_rows: int
     cache_hit_rows: int
     num_steps: int
+    # --- streamed feature path (repro_torch.features; zeros when resident)
+    tier1_rows: int = 0          # host hot-tier rows served to plan gathers
+    tier2_rows: int = 0          # backing/mmap rows served (hot-tier misses)
+    upload_bytes: int = 0        # plan-carried feature bytes shipped
 
 
 def run_pipelined_epoch(trainer, epoch: int, iters: int,
@@ -219,6 +227,7 @@ def _pipelined_epoch(trainer, epoch, iters, batch_per_model, submit, stack,
     top_up(minimum=1)
     raw_losses: list = []
     remote = hits = 0
+    t1 = t2 = up = 0
     num_steps = 0
     dispatch_s = 0.0
     window_t: Optional[float] = None
@@ -251,6 +260,10 @@ def _pipelined_epoch(trainer, epoch, iters, batch_per_model, submit, stack,
         for p in plans:
             remote += p.remote_rows_exact
             hits += p.cache_hit_rows
+            if p.tier_stats:
+                t1 += p.tier_stats["tier1_rows"]
+                t2 += p.tier_stats["tier2_rows"]
+                up += p.tier_stats["upload_bytes"]
         num_steps = plans[-1].num_steps
         done += k
         since_sync += k
@@ -283,4 +296,5 @@ def _pipelined_epoch(trainer, epoch, iters, batch_per_model, submit, stack,
                           steady_iter_s=steady, dispatch_s=dispatch_s,
                           traces=engine.trace_count() - tc_start,
                           remote_rows=remote, cache_hit_rows=hits,
-                          num_steps=num_steps)
+                          num_steps=num_steps, tier1_rows=t1, tier2_rows=t2,
+                          upload_bytes=up)

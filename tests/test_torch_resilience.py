@@ -78,10 +78,11 @@ def _trainer(d, **kw):
     kw.setdefault("optimizer", adam(5e-3))
     kw.setdefault("merging", False)
     kw.setdefault("train_vertices", d["ds"].train_vertices())
+    kw.setdefault("table", d["table"])
     return Trainer(graph=d["ds"].graph, labels=d["ds"].labels,
                    part=d["part"], owner=d["owner"],
-                   local_idx=d["local_idx"], table=d["table"], cfg=_cfg(d),
-                   device="cpu", **kw)
+                   local_idx=d["local_idx"], cfg=_cfg(d), device="cpu",
+                   **kw)
 
 
 def _losses(stats):
@@ -306,6 +307,31 @@ def test_persistent_cache_fault_degrades_to_cache_off(partitioned):
     _assert_params_equal(tr, ctr)
 
 
+def test_persistent_readahead_fault_degrades_to_resident_gather(
+        partitioned):
+    """A readahead forecast that keeps failing takes the tiered store's
+    rung: plan gathers bypass the hot tier and read the backing rows,
+    which are the same values — bitwise the fault-free streamed run."""
+    from repro_torch.features import FeatureStore
+    d = partitioned
+
+    def tiered():
+        return FeatureStore.build(d["ds"].features, d["part"], SHARDS,
+                                  host_budget_bytes=1 << 18)
+    ctr, cs = _run(d, epochs=4, table=tiered())
+    fp = FaultPlan([FaultSpec("thread_exc", epoch=1, site="readahead",
+                              once=False),
+                    FaultSpec("thread_exc", epoch=2, site="readahead",
+                              once=False)])
+    tr, stats = _run(d, fp, epochs=4, table=tiered())
+    assert tr.streamed
+    assert _losses(stats) == _losses(cs)
+    assert "resident_gather" in tr.degradations_taken
+    assert tr.store.hot_bypass and not tr._readahead_enabled
+    _assert_params_equal(tr, ctr)
+    assert tr._degrade("readahead") is None      # nothing left to drop
+
+
 # ---------------------------------------------------------------------------
 # The headline gate: a mixed recoverable plan, bit-identical
 # ---------------------------------------------------------------------------
@@ -313,8 +339,9 @@ def test_persistent_cache_fault_degrades_to_cache_off(partitioned):
 def test_recoverable_faultplan_headline_gate(partitioned):
     """Thread kill + straggler + dropped exchange + a NaN step in one run
     on the resident store (the reference's recoverable plan without its
-    disk_corrupt spec, which needs the streamed store): every kind fires,
-    exactly one rollback, losses AND parameters bitwise fault-free."""
+    disk_corrupt spec, which corrupts a spilled store's disk tier: the
+    streamed variant below runs the whole plan): every kind fires, exactly
+    one rollback, losses AND parameters bitwise fault-free."""
     tr1, cs = _run(partitioned, epochs=3, iters=6)
     specs = [sp for sp in FaultPlan.recoverable(seed=3).specs
              if sp.kind != "disk_corrupt"]
@@ -327,6 +354,37 @@ def test_recoverable_faultplan_headline_gate(partitioned):
     _assert_params_equal(tr1, tr2)
     assert sum(s.rollbacks for s in fs) == 1
     assert sum(s.faults_injected for s in fs) == fp.fired_count() == 4
+
+
+def test_recoverable_faultplan_headline_gate_streamed(partitioned,
+                                                       tmp_path):
+    """The reference's full recoverable plan, disk_corrupt included, on a
+    streamed run from features spilled to disk (checksums on): all five
+    kinds fire, the corrupted chunk is caught and repaired from the source,
+    exactly one rollback, and losses and parameters are bitwise the
+    fault-free streamed run's."""
+    from repro_torch.features import FeatureStore
+
+    def spilled(sub):
+        d = partitioned
+        return FeatureStore.build(d["ds"].features, d["part"], SHARDS,
+                                  directory=str(tmp_path / sub),
+                                  host_budget_bytes=d["table"].nbytes // 4)
+
+    tr1, cs = _run(partitioned, epochs=3, iters=6, table=spilled("clean"))
+    fp = FaultPlan.recoverable(seed=3)
+    tr2, fs = _run(partitioned, fp, epochs=3, iters=6,
+                   table=spilled("faulted"))
+    assert tr1.streamed and tr2.streamed
+    kinds = {k for (k, *_rest) in fp.fired}
+    assert kinds == {"thread_exc", "comm_delay", "comm_drop", "nan_loss",
+                     "disk_corrupt"}
+    assert _losses(fs) == _losses(cs)
+    _assert_params_equal(tr1, tr2)
+    assert sum(s.rollbacks for s in fs) == 1
+    assert sum(s.crc_failures for s in fs) >= 1
+    assert sum(s.repaired_rows for s in fs) >= 1
+    assert sum(s.faults_injected for s in fs) == fp.fired_count() == 5
 
 
 def test_recoverable_plan_keeps_the_reference_specs():

@@ -166,6 +166,36 @@ def test_predict_matches_reference_across_cache_installs(world):
         assert a[k] == b[k], k
 
 
+def test_predict_from_spilled_store(world, tmp_path):
+    """Features resolved through a spilled store (a 64 KiB host hot tier
+    over per-shard .npy files on disk): answers bitwise the port's offline
+    forward over the same store, and within TOL of the reference's served
+    logits over a resident table."""
+    w = world
+    spilled = torch_features.FeatureStore.build(
+        w["ds_t"].features, w["part"], SHARDS, directory=str(tmp_path),
+        host_budget_bytes=64 * 1024)
+    assert not spilled.resident and spilled.spilled
+    st = torch_serve.GNNServer(graph=w["ds_t"].graph, params=w["params"],
+                               cfg=w["cfg_t"], store=spilled, max_batch=16,
+                               cache_budget_bytes=128 * 1024, device="cpu")
+    sj, _ = _servers(w, max_batch=16)
+    st.warmup()
+    sj.warmup()
+    nodes = [7, 11, 200, 41, 2449, 1234]
+    out = st.predict(nodes)
+    cfg = w["cfg_t"]
+    blk = torch_sampler.sample_tree_block(
+        w["ds_t"].graph, np.asarray(nodes, np.int64), cfg.num_layers,
+        cfg.fanout, seed=999)
+    feats = [torch.from_numpy(spilled.take_global(ids)) for ids in blk.hops]
+    with torch.inference_mode():
+        want = torch_models.gnn_forward(w["params"], cfg, feats).numpy()
+    assert np.array_equal(out, want)
+    np.testing.assert_allclose(out, sj.predict(nodes), **TOL)
+    assert spilled.stats.t2_rows > 0          # reads reached the disk tier
+
+
 def test_zero_retraces_after_warmup_and_no_launches_on_cpu(world):
     cuda_kernels.reset_launches()
     torch_core.clear_compile_cache()

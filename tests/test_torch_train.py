@@ -381,7 +381,7 @@ MODES = {"pregather": dict(pregather=True, fold=None),
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
-@pytest.mark.parametrize("model", ["sage", "gcn"])
+@pytest.mark.parametrize("model", ["sage", "gcn", "gat", "deepgcn", "film"])
 def test_run_iteration_matches_reference(world, model, mode):
     w = world
     m = MODES[mode]
@@ -560,6 +560,37 @@ def test_trainer_fit_matches_reference_with_merging(world, scripted_merging):
     assert tp.evaluate() == pytest.approx(tj.evaluate(), abs=1 / 256)
 
 
+FIT_VARIANTS = {
+    "model_centric": ("sage", dict(strategy="model_centric")),
+    "lo": ("sage", dict(strategy="lo")),
+    "hopgnn_per_step": ("sage", dict(pregather=False)),
+    "stack2": ("sage", dict(pipeline_stack=2)),
+    "gcn_lfu": ("gcn", dict(cache_policy="lfu",
+                            cache_budget_bytes=64 * 100 * 4)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FIT_VARIANTS))
+def test_trainer_fit_variants_match_reference(world, name):
+    """Per-epoch losses of other strategies, modes, models and the LFU
+    cache against the reference's Trainer within FIT_RTOL (merging off),
+    with equal remote rows and cache hits."""
+    w = world
+    model, kw = FIT_VARIANTS[name]
+    cfgs = _cfgs(w, model)
+    tree, _ = _params(cfgs[0])
+    tj, make_t = _trainers(w, cfgs, tree, **kw)
+    st_j = tj.fit(epochs=3, iters_per_epoch=3, batch_per_model=8)
+    tt = make_t()
+    st_t = tt.fit(epochs=3, iters_per_epoch=3, batch_per_model=8)
+    np.testing.assert_allclose([s.loss for s in st_t],
+                               [s.loss for s in st_j], rtol=FIT_RTOL)
+    for f in ("remote_rows", "cache_hit_rows", "num_steps"):
+        assert [getattr(s, f) for s in st_t] == \
+            [getattr(s, f) for s in st_j], f
+    assert tt.global_step == tj.global_step == 9
+
+
 def test_trainer_cache_on_matches_reference(world):
     w = world
     cfgs = _cfgs(w)
@@ -625,28 +656,16 @@ def test_no_traces_after_epoch0(world):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "8, multi-GPU"),
-    (dict(tiered=True), "10, streamed training"),
-    (dict(disk_corrupt=True), "10, streamed training")])
-def test_unported_options_raise(world, tmp_path, kw, item):
+    (dict(mesh=object()), "8, multi-GPU")])
+def test_unported_options_raise(world, kw, item):
     """What the port still lacks raises, naming its ROADMAP item: the
-    device mesh, the tiered (streamed) store, and with the latter the
-    disk_corrupt fault, which corrupts that store's backing tier.
-    (Checkpoints, resume, resilience and membership are ported: see
-    tests/test_torch_resume.py, _resilience.py and _membership.py.)"""
-    from repro_torch.resilience import FaultPlan, FaultSpec
+    device mesh. (The tiered store and its disk_corrupt fault are ported:
+    see tests/test_torch_stream.py; checkpoints, resume, resilience and
+    membership: tests/test_torch_resume.py, _resilience.py and
+    _membership.py.)"""
     w = world
     cfgs = _cfgs(w)
     tree, _ = _params(cfgs[0])
     _, make_t = _trainers(w, cfgs, tree)
     with pytest.raises(NotImplementedError, match=item):
-        if kw.pop("disk_corrupt", False):
-            with FaultPlan([FaultSpec("disk_corrupt", epoch=0)]).active():
-                make_t().fit(epochs=1, iters_per_epoch=1)
-        elif kw.pop("tiered", False):
-            store = FeatureStore.build(w["ds_t"].features, w["part"],
-                                       SHARDS, directory=str(tmp_path),
-                                       host_budget_bytes=4096)
-            make_t(table=store)
-        else:
-            make_t(**kw)
+        make_t(**kw)
