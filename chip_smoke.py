@@ -2,10 +2,10 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
 Drives the port's two serving paths and its GNN training path (resident,
-streamed from disk, and the P³ baseline) end to end on the card, and holds
-every kernel it builds against its plain PyTorch version. Imports nothing
-of JAX and nothing of the JAX package. Phases (any failure ends the run
-with a non-zero exit and no result line):
+streamed from disk, over a device mesh, and the P³ baseline) end to end on
+the card, and holds every kernel it builds against its plain PyTorch
+version. Imports nothing of JAX and nothing of the JAX package. Phases
+(any failure ends the run with a non-zero exit and no result line):
 
   1. build    nvcc builds src/repro_torch/kernels/csrc/gather_agg.cu and
               csrc/linattn.cu for sm_90a into build/repro_torch_kernels/
@@ -102,6 +102,31 @@ with a non-zero exit and no result line):
               the main, prefetch, uploader and cache+readahead tracks.
               Prints per-epoch steady ms/iter, plan ms, tier rows and bytes
               and upload bytes per plan, and one profiled epoch.
+  mesh        LeapGNN training over a real device mesh. In the default run
+              (world size 1): a 1-rank NCCL process group in this process
+              (rendezvous through a FileStore under build/), the products
+              world in one shard; a zero-size exchange (r_max 0) through
+              ShardComm; one iteration per mode (pregather, per-step,
+              per-step folded) through run_iteration(mesh=...) bitwise the
+              emulated one, with the collectives it ran (all_to_all 2, T+1
+              and 2, one all_reduce); Trainer(mesh=...) 2 epochs x 6
+              iterations (merging off, resilience on) bitwise the emulated
+              Trainer, gather_rows launched (layers+1) x T per iteration,
+              no new signature after epoch 0. Prints gather_rows at rank
+              0's hops, one built plan's iteration sharded and emulated
+              (CUDA events), NCCL and other device time per iteration
+              under torch.profiler, and the bytes each collective moved
+              beside comm_model's. With --world N (N cards, one spawned
+              rank each; only the build and this phase run): phase 5's
+              world N-way partitioned; each mode's iteration within 1e-5 of
+              the emulated one on rank 0's card; the collectives; a 3 x 6
+              fit against the emulated Trainer (rtol 1e-5), parameters
+              bitwise equal across ranks (all_gather of checksums),
+              gather_rows per rank; with merging on, the same merge
+              patterns on every rank; [ckpt]'s faults but the peer death,
+              bitwise the straight sharded run; then the measurements
+              above. Every gate is agreed across ranks, so they fail
+              together.
   6. rwkv6    rwkv6-7b at its published width, cut to 2 layers, float32:
               the CUDA prefill (through the linattn kernel) against the
               same parameters' prefill on the CPU (plain versions), and
@@ -116,15 +141,18 @@ with a non-zero exit and no result line):
               the largest bucket (device busy share, time by kernel).
 
 Output: one line per measurement; then the kernels' JSON line (launches
-summed over the paths, per path under ``launches_by_path``), the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``.
+summed over the paths, per path under ``launches_by_path``; with --world
+N, the mesh phase's summary instead), the card's name and power limit,
+and last ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--requests 4096] [--qps 1000] [--seed 0]
+    python3 chip_smoke.py --world 4        # on four cards
 """
 from __future__ import annotations
 
 import argparse
 import copy
+import datetime
 import json
 import os
 import shutil
@@ -134,6 +162,8 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -203,6 +233,15 @@ DEVICE = "cuda"    # the device of the p3 and stream phases
 P3_SAMPLE_SEED = 7
 P3_TOL = dict(rtol=2e-3, atol=2e-5)   # tests/test_core.py: P3 vs MC grads
 STREAM_EPOCHS, STREAM_ITERS = 3, 6
+MESH_EPOCHS, MESH_ITERS = 2, 6     # the world-1 fit
+MESH4_EPOCHS = 3                   # world > 1: faults in epochs 1 and 2
+MESH_MODES = (("pregather", True, None), ("per-step", False, False),
+              ("per-step folded", False, True))
+# sharded vs emulated, one iteration's loss and grads: the reference's own
+# bound (tests/test_distributed.py, shard_map against its emulation)
+MESH_TOL = 1e-5
+MESH_FIT_RTOL = 1e-5   # fit losses, sharded vs emulated (summation order)
+MESH_TIMEOUT_S = 600   # a collective that waits longer fails the run
 
 
 def log(phase: str, msg: str) -> None:
@@ -1487,6 +1526,520 @@ def phase_stream(ds, store, part, cfg, seed: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Phase mesh: LeapGNN training over a real device mesh (NCCL)
+# ---------------------------------------------------------------------------
+
+def join_mesh(rank: int, world: int, store_path: str):
+    """This process as rank ``rank`` of a ``world``-rank NCCL process group
+    (rendezvous through a FileStore under build/, a collective that
+    mismatches fails after MESH_TIMEOUT_S) and its 1-D mesh over the
+    ``"data"`` axis, on card ``rank``."""
+    torch.cuda.set_device(rank)
+    os.environ["LOCAL_RANK"] = str(rank)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(store_path, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    return init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+
+
+def mesh_trainer(ds, store, part, cfg, seed: int, mesh=None, **kw):
+    """Phase 5's Trainer with merging off unless asked (the controller is
+    fed wall-clock times) and the default resilience policy: over ``mesh``
+    one rank per shard, else every shard emulated on this card."""
+    kw.setdefault("merging", False)
+    return Trainer(graph=ds.graph, labels=ds.labels, part=part,
+                   owner=store.owner, local_idx=store.local_idx, table=store,
+                   cfg=cfg, optimizer=train_optimizer(), init_seed=seed,
+                   strategy="hopgnn", pregather=True,
+                   train_vertices=ds.train_vertices(), mesh=mesh,
+                   device=None if mesh is not None else "cuda", **kw)
+
+
+def flat(tensors) -> torch.Tensor:
+    return torch.cat([t.detach().reshape(-1).float() for t in tensors])
+
+
+def rank_checksums(tensors) -> torch.Tensor:
+    """One int64 per tensor: its bits weighted by position, so two ranks'
+    tensors agree in every checksum only if they agree bit for bit (up to
+    a collision)."""
+    out = []
+    for t in tensors:
+        bits = t.detach().reshape(-1).contiguous().view(torch.int32) \
+            .to("cuda").long()
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out.append((bits * w).sum())
+    return torch.stack(out)
+
+
+def mesh_iterations(mesh, world: int, ds, store, part, cfg, params,
+                    seed: int, lead: bool) -> None:
+    """One iteration per mode through run_iteration(mesh=...) against the
+    emulated iteration on rank 0's card (broadcast to every rank): bitwise
+    over one rank, within MESH_TOL over several; the collectives each ran."""
+    group = engine.mesh_group(mesh)
+    rng = np.random.default_rng(seed + 5)
+    roots = [rng.choice(ds.train_vertices(), TRAIN_BATCH, replace=False)
+             for _ in range(world)]
+    dense = store.as_dense()
+    full = engine.upload(dense, "cuda") if lead else None
+    for name, pregather, fold in MESH_MODES:
+        plan = plan_iteration(ds.graph, ds.labels, part, store.owner,
+                              store.local_idx, store.local_rows, roots,
+                              num_layers=cfg.num_layers, fanout=cfg.fanout,
+                              strategy="hopgnn", pregather=pregather,
+                              sample_seed=P3_SAMPLE_SEED)
+        g_m, l_m = engine.run_iteration(params, dense, plan, cfg, mesh=mesh,
+                                        fold_returns=fold)
+        fn = engine.get_compiled_iteration(
+            cfg, pregather, mesh=mesh,
+            fold_returns=engine.resolve_fold_returns(plan, fold))
+        counts = engine.collective_counts(
+            fn, params, *engine.prepare_iteration_args(dense, plan,
+                                                       mesh=mesh))
+        mine = flat(list(g_m) + [l_m])
+        want = torch.empty_like(mine)
+        if lead:
+            g_e, l_e = engine.run_iteration(params, full, plan, cfg,
+                                            fold_returns=fold)
+            want = flat(list(g_e) + [l_e])
+        dist.broadcast(want, 0, group=group)
+        err = float((mine - want).abs().max())
+        same = bool(torch.equal(mine, want))
+        errs = engine.agree_max([err, not same], mesh)
+        a2a = {"pregather": 2, "per-step": plan.num_steps + 1,
+               "per-step folded": 2}[name]
+        ok_counts = counts == {"all_to_all": a2a, "all_reduce": 1}
+        bad_counts = engine.agree_max([not ok_counts], mesh)[0]
+        if lead:
+            log("mesh", f"{name}: one iteration (T={plan.num_steps}, r_max "
+                        f"{plan.r_max}, batch_pad {plan.batch_pad}) through "
+                        f"run_iteration(mesh) vs the emulated one on rank 0's "
+                        f"card: loss {float(l_m)!r} vs {float(want[-1])!r}, "
+                        f"max abs err over loss and grad leaves {errs[0]!r} "
+                        f"on the worst rank ("
+                        + ("bitwise on every rank: "
+                           f"{not errs[1]}" if world == 1 else
+                           f"bound {MESH_TOL}") + f"); collectives {counts} "
+                        f"(want all_to_all {a2a}, all_reduce 1)")
+        if world == 1 and errs[1]:
+            raise AssertionError(f"{name}: the sharded iteration over one "
+                                 f"rank is not bitwise the emulated one")
+        if errs[0] > MESH_TOL:
+            raise AssertionError(f"{name}: sharded vs emulated max abs err "
+                                 f"{errs[0]} > {MESH_TOL}")
+        if bad_counts:
+            raise AssertionError(f"{name}: collectives {counts}, want "
+                                 f"all_to_all {a2a}, all_reduce 1")
+    del full
+
+
+def mesh_cost(mesh, world: int, trainer, cfg, lead: bool,
+              emulated=None) -> dict:
+    """What one built plan's iteration costs over the mesh, with no
+    planning in flight: CUDA-event time of the sharded iteration (and of
+    the emulated one on rank 0's card, the others waiting), the NCCL and
+    other device time per iteration under torch.profiler, and the bytes
+    each rank handed the all_to_alls and the all_reduce beside comm_model's
+    hopgnn bytes for the same plan."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    plan = trainer.build_plan(99, 0, TRAIN_BATCH)
+    plan.committed = None      # uploaded by each call, sharded or emulated
+    trainer._close_plan_pool()
+    run = lambda: engine.run_iteration(  # noqa: E731
+        trainer.params, trainer.table, plan, cfg, mesh=mesh)
+    # gather_rows at this rank's hops of (its shard, step 0), on its
+    # workspace [local | fetched] after a real exchange; rank 0 times them
+    # while the others wait
+    table, cache, dev, _ = engine.prepare_iteration_args(
+        trainer.table, plan, mesh=mesh)
+    recv = engine.ShardComm(engine.mesh_group(mesh)).exchange(
+        table[0], dev["req"][0])
+    ws = torch.cat([table[0], cache[0], recv.reshape(-1, table.shape[-1])])
+    engine.agree_max([0], mesh)
+    hops = (time_gather_rows("mesh", f"rank 0 of {world}", ws,
+                             [h[0, 0].contiguous() for h in dev["hop_idx"]])
+            if lead else None)
+    engine.agree_max([0], mesh)
+    del table, cache, dev, recv, ws
+    run()
+    fn = engine.get_compiled_iteration(cfg, True, mesh=mesh)
+    b0 = dict(fn.comm.nbytes)
+    run()
+    nbytes = {k: v - b0[k] for k, v in fn.comm.nbytes.items()}
+    reps = 5
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    engine.agree_max([0], mesh)
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(reps):
+        run()
+    ev[1].record()
+    torch.cuda.synchronize()
+    sharded_ms = ev[0].elapsed_time(ev[1]) / reps
+    emu_ms = None
+    if lead and emulated is not None:
+        table = emulated.table
+        ev[0].record()
+        for _ in range(reps):
+            engine.run_iteration(trainer.params, table, plan, cfg)
+        ev[1].record()
+        torch.cuda.synchronize()
+        emu_ms = ev[0].elapsed_time(ev[1]) / reps
+    engine.agree_max([0], mesh)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+    kinds = {"all_to_all": 0.0, "all_reduce": 0.0, "other": 0.0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us() / 3
+        if "nccl" in e.name.lower():
+            kinds["all_reduce" if "allreduce" in e.name.lower()
+                  else "all_to_all"] += us
+        else:
+            kinds["other"] += us
+    off = (world - 1) / world
+    # the link alone: the iteration's feature exchange and gradient
+    # all_reduce at their sizes, issued back to back after a barrier, so
+    # the time holds no skew between the ranks' hosts
+    group = engine.mesh_group(mesh)
+    feat = torch.ones((world, plan.r_max, cfg.feature_dim),
+                      device=trainer.device)
+    got = torch.empty_like(feat)
+    flat_g = torch.ones(nbytes["all_reduce"] // 4, device=trainer.device)
+    link = engine.agree_max([
+        link_ms(mesh, lambda: dist.all_to_all_single(got, feat, group=group)),
+        link_ms(mesh, lambda: dist.all_reduce(flat_g, group=group))], mesh)
+    link_gbps = feat.numel() * 4 * off / link[0] / 1e6
+    busbw = 2 * off * flat_g.numel() * 4 / link[1] / 1e6
+    del feat, got, flat_g
+    spec = ModelSpec(feature_dim=cfg.feature_dim, hidden_dim=cfg.hidden_dim,
+                     num_layers=cfg.num_layers,
+                     param_bytes=model_param_bytes(trainer.params))
+    model = hopgnn_bytes(plan.remote_rows_exact, plan.num_steps, spec, world)
+    per_rank = engine.agree_max([kinds["all_to_all"], kinds["all_reduce"],
+                                 kinds["other"], sharded_ms], mesh)
+    a2a_ms = kinds["all_to_all"] / 1e3
+    bw = (nbytes["all_to_all"] * off / (a2a_ms / 1e3)
+          if a2a_ms > 0 else float("nan"))
+    out = dict(sharded_ms=sharded_ms, emulated_ms=emu_ms,
+               nccl_a2a_ms=a2a_ms, nccl_allreduce_ms=kinds["all_reduce"] / 1e3,
+               other_device_ms=kinds["other"] / 1e3,
+               worst_rank_ms=[v / 1e3 for v in per_rank[:3]]
+               + [per_rank[3]],
+               a2a_bytes=nbytes["all_to_all"],
+               a2a_offrank_bytes=int(nbytes["all_to_all"] * off),
+               allreduce_bytes=nbytes["all_reduce"],
+               model_feature_bytes=model["feature_bytes"],
+               model_grad_bytes=model["grad_bytes"],
+               remote_rows=plan.remote_rows_exact, r_max=plan.r_max,
+               T=plan.num_steps, a2a_gbps=bw / 1e9, gather_rows=hops,
+               link_a2a_ms=link[0], link_allreduce_ms=link[1],
+               link_a2a_gbps=link_gbps, link_allreduce_busbw_gbps=busbw)
+    if lead:
+        log("mesh", f"gather_rows, {cfg.num_layers + 1} hops of "
+                    f"rank 0's (shard, step): device {hops['ms']:.5f} ms "
+                    f"(plain {hops['plain_ms']:.5f}, index_select "
+                    f"{hops['library_ms']:.5f}, bound {hops['bound_ms']:.5f})")
+        log("mesh", f"one built plan's iteration (T={plan.num_steps}, r_max "
+                    f"{plan.r_max}, {plan.remote_rows_exact} remote rows), "
+                    f"no planning in flight, CUDA events over {reps}: "
+                    f"sharded {sharded_ms:.3f} ms/iter on rank 0 (worst rank"
+                    f" {per_rank[3]:.3f})"
+                    + (f", emulated {emu_ms:.3f} ms/iter (the {world} "
+                       f"shard(s) on rank 0's card)" if emu_ms is not None
+                       else ""))
+        log("mesh", f"device per iteration under torch.profiler, rank 0: "
+                    f"NCCL all_to_all {a2a_ms:.4f} ms, all_reduce "
+                    f"{kinds['all_reduce'] / 1e3:.4f} ms (kernel time, "
+                    f"waits for peers included), other kernels and copies "
+                    f"{kinds['other'] / 1e3:.4f} ms; worst rank "
+                    f"{per_rank[0] / 1e3:.4f}, {per_rank[1] / 1e3:.4f}, "
+                    f"{per_rank[2] / 1e3:.4f} ms")
+        log("mesh", f"bytes per iteration on each rank: all_to_all "
+                    f"{nbytes['all_to_all']} B handed in "
+                    f"({out['a2a_offrank_bytes']} B to other ranks), "
+                    f"all_reduce {nbytes['all_reduce']} B; comm_model hopgnn "
+                    f"for this plan: features {model['feature_bytes']} B "
+                    f"over all ranks ({plan.remote_rows_exact} deduped rows),"
+                    f" grads {model['grad_bytes']} B; all_to_all rate in "
+                    f"the iteration {out['a2a_gbps']:.2f} GB/s off-rank "
+                    f"(bytes to other ranks over its kernel time, waits "
+                    f"included)")
+        log("mesh", f"the link alone, CUDA events over back-to-back calls "
+                    f"after a barrier, slowest rank: all_to_all of "
+                    f"({world}, {plan.r_max}, {cfg.feature_dim}) f32 "
+                    f"{link[0]:.4f} ms = {link_gbps:.2f} GB/s off-rank per "
+                    f"rank; all_reduce of {nbytes['all_reduce']} B "
+                    f"{link[1]:.4f} ms = {busbw:.2f} GB/s bus bandwidth "
+                    f"(2(P-1)/P x bytes / time)")
+    return out
+
+
+def link_ms(mesh, fn, reps: int = 20) -> float:
+    """Device time per call of the collective ``fn`` on this rank: a
+    barrier, one warm call, then ``reps`` calls back to back between CUDA
+    events."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    engine.agree_max([0], mesh)
+    fn()
+    torch.cuda.synchronize()
+    engine.agree_max([0], mesh)
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+def mesh_fit_log(tag: str, stats, iters: int) -> None:
+    for st in stats:
+        n = max(st.plans_built, 1)
+        log("mesh", f"{tag} epoch {st.epoch}: loss {st.loss!r}, merge "
+                    f"pattern {st.num_steps}, steady "
+                    f"{1e3 * st.steady_time_s / iters:.2f} ms/iter, plan "
+                    f"{1e3 * st.plan_time_s / n:.2f} ms/plan, traces "
+                    f"{st.traces}, attempts {st.epoch_attempts}, rollbacks "
+                    f"{st.rollbacks}, wall {st.time_s:.3f} s")
+
+
+def phase_mesh1(ds, cfg, seed: int) -> int:
+    """[mesh] at world size 1: a one-rank NCCL process group in this
+    process, the products world in one shard. Returns the main path's
+    gather_rows launches (the Trainer(mesh) fit)."""
+    base = os.path.join(ROOT, "build", "chip_smoke_mesh")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    mesh = join_mesh(0, 1, os.path.join(base, "store1"))
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        part = community_partition(ds.communities, 1)
+        table, owner, local_idx = shard_features(ds.features, part, 1)
+        store = FeatureStore.from_array(table, owner=owner,
+                                        local_idx=local_idx)
+        log("mesh", f"card {card_line()}; a 1-rank NCCL group (FileStore "
+                    f"under {os.path.relpath(base, ROOT)}/), mesh "
+                    f"{tuple(mesh.shape)} over 'data' on "
+                    f"{engine.mesh_device(mesh)}; products in 1 shard "
+                    f"({store.local_rows} rows) in "
+                    f"{time.perf_counter() - t0:.2f} s")
+        # a zero-size exchange (r_max = 0): NCCL gets it like any other
+        comm = engine.ShardComm(engine.mesh_group(mesh))
+        got = comm.exchange(torch.zeros((1, 4, cfg.feature_dim),
+                                        device="cuda")[0],
+                            torch.zeros((1, 0), dtype=torch.int32,
+                                        device="cuda"))
+        torch.cuda.synchronize()
+        log("mesh", f"zero-size exchange (r_max 0): shape "
+                    f"{tuple(got.shape)}, collectives {comm.counts}")
+        if tuple(got.shape) != (1, 0, cfg.feature_dim):
+            raise AssertionError(f"zero-size exchange gave {got.shape}")
+        tm = mesh_trainer(ds, store, part, cfg, seed, mesh=mesh)
+        mesh_iterations(mesh, 1, ds, store, part, cfg, tm.params, seed,
+                        True)
+
+        # the main path: counts zeroed just before the mesh fit, read after
+        ga.reset_launches()
+        t0 = time.perf_counter()
+        sm = tm.fit(MESH_EPOCHS, MESH_ITERS, batch_per_model=TRAIN_BATCH)
+        wall_m = time.perf_counter() - t0
+        launches = ga.launches["gather_rows"]
+        mesh_fit_log("sharded", sm, MESH_ITERS)
+        te = mesh_trainer(ds, store, part, cfg, seed)
+        t0 = time.perf_counter()
+        se = te.fit(MESH_EPOCHS, MESH_ITERS, batch_per_model=TRAIN_BATCH)
+        wall_e = time.perf_counter() - t0
+        mesh_fit_log("emulated", se, MESH_ITERS)
+        want = sum((cfg.num_layers + 1) * st.num_steps * MESH_ITERS
+                   for st in sm)
+        bitwise = [a.loss for a in sm] == [b.loss for b in se] \
+            and same_state(tm, te)
+        new_sigs = sum(st.traces for st in sm[1:])
+        log("mesh", f"Trainer(mesh) fit {MESH_EPOCHS}x{MESH_ITERS} in "
+                    f"{wall_m:.2f} s (emulated {wall_e:.2f} s): losses and "
+                    f"parameters bitwise the emulated Trainer's {bitwise}; "
+                    f"gather_rows launches {launches} (want {want} = "
+                    f"(layers+1) x T x iterations); new signatures after "
+                    f"epoch 0 {new_sigs}; trace kinds "
+                    f"{sorted({r[0] for r in engine.trace_log()})}")
+        if not bitwise:
+            raise AssertionError("the 1-rank mesh fit is not bitwise the "
+                                 "emulated fit")
+        if launches != want:
+            raise AssertionError(f"gather_rows launched {launches} times, "
+                                 f"want {want}")
+        if new_sigs:
+            raise AssertionError(f"{new_sigs} new signatures after epoch 0")
+        mesh_cost(mesh, 1, tm, cfg, True, emulated=te)
+        del tm, te
+        torch.cuda.empty_cache()
+        log("mesh", f"phase done in {time.perf_counter() - t_phase:.1f} s")
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_rank_main(rank: int, world: int, seed: int, base: str) -> None:
+    """One rank of the [mesh] phase at world size > 1 (spawned, one per
+    card). Every gate is agreed across ranks before it raises, so the
+    ranks fail together; rank 0 logs and writes the summary."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = join_mesh(rank, world, os.path.join(base, "store"))
+    lead = rank == 0
+    try:
+        t0 = time.perf_counter()
+        ds = make_dataset("products", scale=1.0, seed=seed)
+        part = community_partition(ds.communities, world)
+        table, owner, local_idx = shard_features(ds.features, part, world)
+        store = FeatureStore.from_array(table, owner=owner,
+                                        local_idx=local_idx)
+        cfg = GNNConfig(model="sage", num_layers=3, hidden_dim=128,
+                        feature_dim=ds.feature_dim,
+                        num_classes=ds.num_classes, fanout=10)
+        if lead:
+            log("mesh", f"card {card_line()}; {world} ranks, one per card "
+                        f"(NCCL, FileStore under "
+                        f"{os.path.relpath(base, ROOT)}/); products "
+                        f"{ds.num_vertices} vertices in {world} shards of "
+                        f"{store.local_rows} rows; sage 3x128 fanout 10; "
+                        f"set up in {time.perf_counter() - t0:.2f} s")
+        ts = mesh_trainer(ds, store, part, cfg, seed, mesh=mesh)
+        mesh_iterations(mesh, world, ds, store, part, cfg, ts.params, seed,
+                        lead)
+        layers = cfg.num_layers + 1
+
+        # the straight sharded fit: counts zeroed just before, read after
+        ga.reset_launches()
+        t0 = time.perf_counter()
+        ss = ts.fit(MESH4_EPOCHS, MESH_ITERS, batch_per_model=TRAIN_BATCH)
+        wall = time.perf_counter() - t0
+        launches = ga.launches["gather_rows"]
+        want = sum(layers * st.num_steps * MESH_ITERS for st in ss)
+        if lead:
+            mesh_fit_log("sharded", ss, MESH_ITERS)
+        losses = torch.tensor([st.loss for st in ss], dtype=torch.float64,
+                              device="cuda")
+        if lead:
+            te = mesh_trainer(ds, store, part, cfg, seed)
+            se = te.fit(MESH4_EPOCHS, MESH_ITERS,
+                        batch_per_model=TRAIN_BATCH)
+            mesh_fit_log("emulated", se, MESH_ITERS)
+            emu = torch.tensor([st.loss for st in se], dtype=torch.float64,
+                               device="cuda")
+        else:
+            te, emu = None, torch.empty_like(losses)
+        dist.broadcast(emu, 0, group=engine.mesh_group(mesh))
+        rel = float(((losses - emu).abs() / emu.abs()).max())
+        sums = rank_checksums(state_tensors(ts))
+        every = [torch.empty_like(sums) for _ in range(world)]
+        dist.all_gather(every, sums, group=engine.mesh_group(mesh))
+        same_params = all(torch.equal(every[0], s) for s in every)
+        counts = engine.agree_max([rel, launches != want, launches], mesh)
+        if lead:
+            log("mesh", f"Trainer(mesh) fit {MESH4_EPOCHS}x{MESH_ITERS} in "
+                        f"{wall:.2f} s: losses vs the emulated Trainer's "
+                        f"max rel err {counts[0]!r} over ranks (bound "
+                        f"{MESH_FIT_RTOL}); parameters and moments bitwise "
+                        f"equal across ranks (all_gather of "
+                        f"{sums.numel()} checksums) {same_params}; "
+                        f"gather_rows launches per rank {launches} (want "
+                        f"{want} = (layers+1) x T x iterations; worst rank "
+                        f"{int(counts[2])})")
+        if counts[0] > MESH_FIT_RTOL:
+            raise AssertionError(f"mesh fit losses vs emulated rel err "
+                                 f"{counts[0]} > {MESH_FIT_RTOL}")
+        if not same_params:
+            raise AssertionError("parameters differ across ranks")
+        if counts[1]:
+            raise AssertionError(f"gather_rows launched {launches} times "
+                                 f"on a rank, want {want}")
+        cost = mesh_cost(mesh, world, ts, cfg, lead, emulated=te)
+        del te
+
+        # merging on: every rank must walk the same merge patterns
+        tm = mesh_trainer(ds, store, part, cfg, seed, mesh=mesh,
+                          merging=True)
+        sm = tm.fit(MESH4_EPOCHS, MESH_ITERS, batch_per_model=TRAIN_BATCH)
+        pat = torch.tensor([st.num_steps for st in sm], device="cuda")
+        every = [torch.empty_like(pat) for _ in range(world)]
+        dist.all_gather(every, pat, group=engine.mesh_group(mesh))
+        same_pat = all(torch.equal(every[0], p) for p in every)
+        if lead:
+            mesh_fit_log("merging", sm, MESH_ITERS)
+            log("mesh", f"merging on: patterns per rank "
+                        f"{[p.tolist() for p in every]}; the same on every "
+                        f"rank {same_pat}")
+        if not same_pat:
+            raise AssertionError("ranks walked different merge patterns")
+        del tm
+
+        # the straight fit again under faults, as in [ckpt]
+        fp = FaultPlan([
+            FaultSpec("thread_exc", epoch=1, it=1, site="prefetch"),
+            FaultSpec("comm_delay", epoch=1, it=3, delay_s=0.003),
+            FaultSpec("comm_drop", epoch=1, it=4, drops=1),
+            FaultSpec("nan_loss", epoch=2, it=4)], seed=seed, name="mesh")
+        tf = mesh_trainer(ds, store, part, cfg, seed, mesh=mesh)
+        with fp.active():
+            sf = tf.fit(MESH4_EPOCHS, MESH_ITERS,
+                        batch_per_model=TRAIN_BATCH)
+        kinds = sorted({k for k, *_ in fp.fired})
+        bitwise = [a.loss for a in ss] == [b.loss for b in sf] \
+            and same_state(ts, tf)
+        bad = engine.agree_max([not bitwise,
+                                kinds != sorted({s.kind for s in fp.specs})],
+                               mesh)
+        if lead:
+            mesh_fit_log("faulted", sf, MESH_ITERS)
+            log("mesh", f"faulted sharded run: fired {fp.fired}; losses, "
+                        f"parameters and moments bitwise the straight "
+                        f"sharded run on every rank {not bad[0]}; rollbacks "
+                        f"{sum(st.rollbacks for st in sf)}")
+        if bad[0] or bad[1]:
+            raise AssertionError(f"faulted sharded run: bitwise "
+                                 f"{not bad[0]}, kinds {kinds}")
+        if lead:
+            summary = dict(world=world, launches_per_rank=launches,
+                           fit_rel_err=counts[0], cost=cost,
+                           steady_ms=[1e3 * st.steady_time_s / MESH_ITERS
+                                      for st in ss],
+                           plan_ms=[1e3 * st.plan_time_s
+                                    / max(st.plans_built, 1) for st in ss],
+                           patterns=pat.tolist())
+            with open(os.path.join(base, "summary.json"), "w") as f:
+                json.dump(summary, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(world: int, seed: int) -> dict:
+    """[mesh] at world size > 1: spawn one rank per card and collect rank
+    0's summary. Needs ``world`` cards; there is no fallback."""
+    if torch.cuda.device_count() < world:
+        raise RuntimeError(f"--world {world} needs {world} cards, "
+                           f"{torch.cuda.device_count()} visible")
+    import torch.multiprocessing as tmp
+    base = os.path.join(ROOT, "build", "chip_smoke_mesh")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    t0 = time.perf_counter()
+    tmp.spawn(mesh_rank_main, args=(world, seed, base), nprocs=world,
+              join=True)
+    with open(os.path.join(base, "summary.json")) as f:
+        summary = json.load(f)
+    log("mesh", f"{world} ranks done in {time.perf_counter() - t0:.1f} s")
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: RWKV6 at full width, 2 layers, float32
 # ---------------------------------------------------------------------------
 
@@ -1675,6 +2228,9 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=4096)
     ap.add_argument("--qps", type=float, default=1000.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--world", type=int, default=1,
+                    help="ranks of the [mesh] phase, one per card; above 1 "
+                         "only the build and [mesh] run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1685,8 +2241,19 @@ def main() -> int:
     log("device", f"{card_line()}; torch {torch.__version__} cuda "
                   f"{torch.version.cuda}; tf32 matmul "
                   f"{torch.backends.cuda.matmul.allow_tf32} cudnn "
-                  f"{torch.backends.cudnn.allow_tf32}")
+                  f"{torch.backends.cudnn.allow_tf32}; "
+                  f"{torch.cuda.device_count()} cards visible")
     phase_build()
+    if args.world > 1:
+        summary = phase_mesh(args.world, args.seed)
+        log("done", f"build and [mesh] at world size {args.world} passed in "
+                    f"{time.perf_counter() - t_all:.1f} s")
+        print(json.dumps({"mesh": summary}))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     ds, store, cfg, part = build_world(args.seed)
     ws, hops = rung64_workspace(ds, store, cfg, args.seed + 1)
     kernels = [check_gather_rows(ws, hops, args.seed),
@@ -1704,6 +2271,8 @@ def main() -> int:
                                                   args.seed)
     by_path["gather_rows"]["gnn_train_streamed"] = phase_stream(
         ds, store, part, cfg, args.seed)
+    by_path["gather_rows"]["gnn_train_mesh"] = phase_mesh1(ds, cfg,
+                                                           args.seed)
     del ds, store
     phase_rwkv6_wide(args.seed)
     by_path["linattn"]["llm_serve"] = phase_llm(args.seed)

@@ -83,11 +83,16 @@ class CacheStore:
     (``CacheStore(..., c_max=next_bucket(budget_rows))``) so even a cold
     (empty) cache already has its final device shape — the compile-once
     pattern the Trainer uses.
+
+    Under a device mesh (``shard`` = this rank) the index and the host
+    table still cover every shard — each rank plans the whole iteration —
+    but only the rank's ``(1, c_max, d)`` slice is uploaded.
     """
 
     def __init__(self, num_shards: int, feature_dim: int, c_max: int = 0,
-                 dtype=np.float32, device=None):
+                 dtype=np.float32, device=None, shard=None):
         self.device = resolve_device(device)
+        self.shard = shard
         self.num_shards = int(num_shards)
         self.feature_dim = int(feature_dim)
         self.dtype = np.dtype(dtype)
@@ -105,12 +110,15 @@ class CacheStore:
 
     @property
     def device_table(self):
-        """(N, c_max, d) tensor on ``device``, cached across calls until an
-        install. Pre-sized to ``c_max``, so a refresh never changes shapes."""
+        """(N, c_max, d) tensor on ``device`` — (1, c_max, d), the shard's
+        slice, with a ``shard`` — cached across calls until an install.
+        Pre-sized to ``c_max``, so a refresh never changes shapes."""
         if self._device is None:
-            with _obs_span("cache.upload", bytes=int(self._host.nbytes)):
-                self._device = torch.from_numpy(self._host).to(self.device)
-            _obs_metrics.inc("cache.upload_bytes", int(self._host.nbytes))
+            host = (self._host if self.shard is None
+                    else self._host[self.shard:self.shard + 1])
+            with _obs_span("cache.upload", bytes=int(host.nbytes)):
+                self._device = torch.from_numpy(host).to(self.device)
+            _obs_metrics.inc("cache.upload_bytes", int(host.nbytes))
         return self._device
 
     def nbytes(self) -> int:

@@ -3,11 +3,28 @@
 The reference (``repro.core.distributed``) writes the per-iteration
 computation once against a ``Comm`` interface: real collectives inside
 ``shard_map`` (``ShardComm``), or the same exchange as gathers over
-globally stacked arrays on one device (``EmulatedComm``). The port has the
-emulated half: all N shards run on one device, the exchange is plain
-tensor indexing (bitwise the reference's data movement), and a Python loop
-over shards and time steps takes the place of the reference's ``vmap`` and
-``scan``. Multi-GPU collectives over NCCL are ROADMAP Queue 1 item 8.
+globally stacked arrays on one device (``EmulatedComm``). The port has
+both halves:
+
+* **Emulated** (``mesh=None``): all N shards run on one device, the
+  exchange is plain tensor indexing (bitwise the reference's data
+  movement), and a Python loop over shards and time steps takes the place
+  of the reference's ``vmap`` and ``scan``.
+* **Sharded** (``mesh=`` a 1-D ``torch.distributed`` ``DeviceMesh`` over
+  the ``"data"`` axis, one process per shard): the PyTorch idiom for
+  ``shard_map`` is SPMD — every rank runs the same program with the same
+  seeds, so it builds the same plans, and executes only its own shard.
+  :class:`ShardComm` joins the ranks with ``all_to_all_single`` for the
+  exchanges and ONE ``all_reduce`` per iteration over a flat buffer of
+  every gradient leaf and the shard's loss sum (DDP's bucketing; the
+  reference runs one psum per leaf, which is elementwise the same sum).
+  NCCL on the card, gloo on the CPU. :func:`prepare_iteration_args` hands
+  the shard body the rank's slice of every leading-N argument, with the
+  shard axis kept at size 1 as ``shard_map`` does, and uploads only that
+  slice. Over one rank the collectives are copies, so the sharded
+  iteration is bitwise the emulated one; over N ranks the gradient sum
+  runs in the collective's order, not shard order, and agrees with the
+  emulated sum at float32 tolerance.
 
 The feature exchange is LeapGNN's pre-gathering (§5.2): the plan's
 deduplicated request indices select each peer's rows once per iteration,
@@ -61,10 +78,12 @@ here — since the gather kernel does no bounds check.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.tree import tree_leaves
 from repro_torch.device import resolve_device
@@ -151,6 +170,166 @@ class EmulatedComm:
         for g in grads_g[1:]:
             torch._foreach_add_(out, g)
         return torch._foreach_div(out, denom)
+
+
+# ---------------------------------------------------------------------------
+# Device meshes: one process per shard
+# ---------------------------------------------------------------------------
+
+def mesh_group(mesh):
+    """The process group of a 1-D mesh's ``"data"`` axis."""
+    if mesh.ndim != 1:
+        raise ValueError(f"the engine takes a 1-D mesh, got {mesh.ndim} "
+                         f"dimensions")
+    return mesh.get_group(0)
+
+
+def mesh_rank(mesh) -> int:
+    """This process's shard: its rank on the mesh's data axis."""
+    return dist.get_rank(mesh_group(mesh))
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device this rank computes on: the CPU for a CPU mesh, else
+    ``cuda:LOCAL_RANK`` (set by torchrun; without it, the global rank
+    modulo the cards this process sees)."""
+    if mesh.device_type == "cpu":
+        return torch.device("cpu")
+    local = os.environ.get("LOCAL_RANK")
+    index = (int(local) if local is not None
+             else dist.get_rank() % torch.cuda.device_count())
+    return torch.device(mesh.device_type, index)
+
+
+def check_mesh(mesh, num_shards: int) -> None:
+    """The reference's precondition: the data axis has one rank per shard."""
+    if mesh.size() != num_shards:
+        raise ValueError(f"mesh of {mesh.size()} ranks for a plan of "
+                         f"{num_shards} shards: the data axis needs one "
+                         f"rank per shard")
+
+
+def agree_max(values, mesh) -> list:
+    """The elementwise max over the mesh's ranks of a few host numbers.
+
+    Under a mesh every host decision that precedes a collective must come
+    out the same on every rank, or the ranks enter different collectives:
+    the Trainer agrees the ones read from a wall clock or a thread's
+    timing (the merge controller's epoch time, the retry guard's deadline,
+    the plan wait's stall deadline) with this small ``all_reduce(MAX)``
+    on the mesh's own group and device."""
+    t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                     device=mesh_device(mesh))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh_group(mesh))
+    return t.tolist()
+
+
+class ShardComm:
+    """Real collectives over a process group, one rank per shard: the
+    reference's ``ShardComm`` (``lax.all_to_all``/``psum`` inside
+    ``shard_map``) as ``torch.distributed`` calls.
+
+    Every method is data movement over the group except the two means,
+    which sum with ``all_reduce`` and then divide. ``counts`` and
+    ``nbytes`` record, per collective, the executions this instance made
+    and the bytes each rank handed them (its own chunk included) —
+    :func:`collective_counts` reads the former."""
+
+    def __init__(self, group=None):
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.counts = {"all_to_all": 0, "all_reduce": 0}
+        self.nbytes = {"all_to_all": 0, "all_reduce": 0}
+
+    def _note(self, name: str, x: torch.Tensor) -> None:
+        self.counts[name] += 1
+        self.nbytes[name] += x.numel() * x.element_size()
+
+    def _all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Split dim 0 into ``size`` equal chunks, send chunk p to rank p
+        and stack what each rank sent back in rank order. A zero-size
+        exchange (``r_max = 0``) is issued like any other."""
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self.group)
+        self._note("all_to_all", x)
+        return out
+
+    def exchange_indices(self, req: torch.Tensor) -> torch.Tensor:
+        """req: (P, r_max) peer-local indices I want. Returns (P, r_max):
+        row p = indices peer p wants from me."""
+        return self._all_to_all(req)
+
+    def exchange_indices_batched(self, step_req: torch.Tensor
+                                 ) -> torch.Tensor:
+        """step_req: (T, P, r_max) — all T per-step requests in ONE
+        all_to_all. Returns (T, P, r_max): ``out[t, p]`` = indices peer p
+        wants from me at step t. The reference splits axis 1;
+        ``all_to_all_single`` splits dim 0, so the peer axis moves in
+        front for the exchange and back after it."""
+        return self._all_to_all(step_req.permute(1, 0, 2)).permute(1, 0, 2)
+
+    def serve_features(self, table: torch.Tensor,
+                       incoming: torch.Tensor) -> torch.Tensor:
+        """table: (local_rows, d); incoming: (P, r_max) indices each peer
+        wants from me. Gathers them from the local shard (the reference's
+        ``jnp.take``, outside any kernel) and ships them back; returns
+        (P, r_max, d): row p = rows fetched from peer p."""
+        P, r = incoming.shape
+        served = table.index_select(0, incoming.reshape(-1).long())
+        return self._all_to_all(served.reshape(P, r, table.shape[1]))
+
+    def serve_features_batched(self, table: torch.Tensor,
+                               incoming: torch.Tensor) -> torch.Tensor:
+        """All T feature returns in ONE all_to_all. incoming: (T, P, r_max)
+        server-view indices. Returns (T, P, r_max, d): ``out[t]`` equals
+        the per-step :meth:`serve_features` of ``incoming[t]``."""
+        T, P, r = incoming.shape
+        served = table.index_select(0, incoming.reshape(-1).long())
+        served = served.reshape(T, P, r, table.shape[1]).permute(1, 0, 2, 3)
+        return self._all_to_all(served).permute(1, 0, 2, 3)
+
+    def exchange(self, table: torch.Tensor,
+                 req: torch.Tensor) -> torch.Tensor:
+        """table: (local_rows, d); req: (P, r_max) peer-local indices.
+        Returns (P, r_max, d): row p = rows fetched from peer p."""
+        return self.serve_features(table, self.exchange_indices(req))
+
+    def _sum(self, tensors: list) -> torch.Tensor:
+        """Every tensor summed over the group by ONE all_reduce of a flat
+        buffer (one dtype), returned flat."""
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+        self._note("all_reduce", flat)
+        return flat
+
+    def grad_mean(self, grads: list, denom, loss_sum=None):
+        """The gradient leaves summed over the group and divided by
+        ``denom``. With ``loss_sum`` the shard's loss sum rides in the same
+        buffer and ``(grads, loss)`` comes back: one all_reduce per
+        iteration."""
+        parts = list(grads) + ([] if loss_sum is None
+                               else [loss_sum.reshape(1)])
+        flat = self._sum(parts) / denom
+        out = [f.view_as(g) for f, g in
+               zip(torch.split(flat, [t.numel() for t in parts]), parts)]
+        if loss_sum is None:
+            return out
+        return out[:-1], out[-1].reshape(())
+
+    def mean_scalar(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of a scalar over the group (the reference's pmean)."""
+        return self._sum([x]).reshape(x.shape) / self.size
+
+    # -- membership hooks: a peer's death is registered process-wide, so
+    # every comm boundary sees the same world view
+    @staticmethod
+    def kill(shard: int) -> None:
+        kill_peer(shard)
+
+    @staticmethod
+    def revive(shard: int) -> None:
+        revive_peer(shard)
 
 
 # ---------------------------------------------------------------------------
@@ -245,6 +424,76 @@ def _emulated_iteration(params, table_g, cache_g, dev, denom,
     return grads, loss
 
 
+def _iteration_shard(params, table, cache, dev, cfg: GNNConfig,
+                     pregather: bool, fold_returns: bool, denom,
+                     comm: ShardComm):
+    """The body each rank runs for its own shard. ``dev`` is the plan's
+    device args with the shard axis stripped, ``table`` the shard's
+    (local_rows, d) rows and ``cache`` its (c_max, d) cached remote rows;
+    the workspace is ``[local | cached | fetched]``. Pregather: one index
+    and one feature all_to_all ahead of the steps. Per-step: the T index
+    requests in one batched all_to_all, then the T feature returns folded
+    into one (``fold_returns``) or one per step."""
+    d = table.shape[1]
+    if pregather:
+        ws = torch.cat([table, cache,
+                        comm.exchange(table, dev["req"]).reshape(-1, d)], 0)
+        workspace_fn = lambda t: ws  # noqa: E731
+    else:
+        incoming = comm.exchange_indices_batched(dev["step_req"])
+        if fold_returns:
+            recv_all = comm.serve_features_batched(table, incoming)
+
+            def workspace_fn(t):
+                return torch.cat([table, cache,
+                                  recv_all[t].reshape(-1, d)], 0)
+        else:
+            def workspace_fn(t):
+                recv = comm.serve_features(table, incoming[t])
+                return torch.cat([table, cache, recv.reshape(-1, d)], 0)
+    grads, loss_sum = _shard_grads(params, cfg, workspace_fn, dev["hop_idx"],
+                                   dev["labels"], dev["weights"])
+    return comm.grad_mean(grads, denom, loss_sum)
+
+
+def _streamed_shard(params, cache, dev, cfg: GNNConfig, denom,
+                    comm: ShardComm):
+    """Streamed-mode shard body: the workspace comes entirely from the
+    plan's feature blocks — ``[feat_local | cached | feat_fetch]`` — so no
+    feature collective runs; only the gradient reduction remains."""
+    d = dev["feat_local"].shape[-1]
+    ws = torch.cat([dev["feat_local"], cache,
+                    dev["feat_fetch"].reshape(-1, d)], 0)
+    grads, loss_sum = _shard_grads(params, cfg, lambda t: ws, dev["hop_idx"],
+                                   dev["labels"], dev["weights"])
+    return comm.grad_mean(grads, denom, loss_sum)
+
+
+def _grads_callable(cfg: GNNConfig, pregather: bool, fold_returns: bool,
+                    streamed: bool, mesh) -> tuple:
+    """``(fn, comm)``: the ``(params, table, cache, dev, denom) -> (grads,
+    loss)`` core that the plain, fused and stacked callables wrap —
+    emulated over stacked shards without a mesh (``comm`` None), else this
+    rank's shard body over a :class:`ShardComm` on the mesh's group."""
+    if mesh is None:
+        def fn(params, table, cache, dev, denom):
+            return _emulated_iteration(params, table, cache, dev, denom, cfg,
+                                       pregather, fold_returns, streamed)
+        return fn, None
+    comm = ShardComm(mesh_group(mesh))
+
+    def body(params, table, cache, dev, denom):
+        # this rank's views with the shard axis kept (size 1), as
+        # shard_map passes them
+        table, cache = table[0], cache[0]
+        dev = tree_map(lambda x: x[0], dev)
+        if streamed:
+            return _streamed_shard(params, cache, dev, cfg, denom, comm)
+        return _iteration_shard(params, table, cache, dev, cfg, pregather,
+                                fold_returns, denom, comm)
+    return body, comm
+
+
 # ---------------------------------------------------------------------------
 # Compiled-fn cache + trace log (compile-once contract)
 # ---------------------------------------------------------------------------
@@ -309,9 +558,16 @@ def _tracing(kind: str, cfg: GNNConfig, pregather: bool, body: Callable,
     return fn
 
 
+def _mesh_key(mesh):
+    """Compile-cache identity of a mesh: its id (the cached callable keeps
+    the mesh as its ``mesh`` attribute, so the id is never recycled while
+    the entry exists)."""
+    return None if mesh is None else ("mesh-id", id(mesh))
+
+
 def get_compiled_iteration(cfg: GNNConfig, pregather: bool,
                            fold_returns: bool = False,
-                           streamed: bool = False):
+                           streamed: bool = False, mesh=None):
     """The cached iteration callable for this engine configuration:
     ``fn(params, table, cache, dev, denom) -> (grads, loss)`` with
     ``table`` (N, local_rows, d) and ``cache`` (N, c_max, d) tensors on the
@@ -322,15 +578,22 @@ def get_compiled_iteration(cfg: GNNConfig, pregather: bool,
     ``fold_returns`` only affects per-step mode. ``streamed``: the plan
     carries its feature blocks (``feat_local``/``feat_fetch`` in ``dev``)
     and ``table`` is the shared zero-width placeholder; no feature exchange
-    runs."""
-    key = ("emulated", cfg, bool(pregather), bool(fold_returns),
-           bool(streamed))
+    runs.
+
+    With a ``mesh`` the callable is this rank's shard body (kind
+    ``"sharded"``): every leading-N argument is the rank's slice with the
+    shard axis kept at size 1 (:func:`prepare_iteration_args` makes them),
+    and the callable's ``comm`` attribute is the :class:`ShardComm` whose
+    counters :func:`collective_counts` reads."""
+    key = ("emulated" if mesh is None else "sharded", cfg, bool(pregather),
+           bool(fold_returns), bool(streamed), _mesh_key(mesh))
     fn = _COMPILE_CACHE.get(key)
     if fn is None:
-        def body(params, table, cache, dev, denom):
-            return _emulated_iteration(params, table, cache, dev, denom, cfg,
-                                       pregather, fold_returns, streamed)
-        fn = _tracing("emulated", cfg, pregather, body, dev_pos=3)
+        body, comm = _grads_callable(cfg, pregather, fold_returns, streamed,
+                                     mesh)
+        fn = _tracing(key[0], cfg, pregather, body, dev_pos=3)
+        fn.comm = comm
+        fn.mesh = mesh
         _COMPILE_CACHE[key] = fn
     return fn
 
@@ -400,7 +663,7 @@ def optimizer_cache_key(optimizer) -> tuple:
 def get_compiled_train_step(cfg: GNNConfig, pregather: bool, optimizer,
                             fold_returns: bool = False,
                             stacked: bool = False,
-                            streamed: bool = False):
+                            streamed: bool = False, mesh=None):
     """Cached *fused* train step: iteration + optimizer update, one call.
 
     Signature ``fn(params, opt_state, table, cache, dev, denom) ->
@@ -409,17 +672,21 @@ def get_compiled_train_step(cfg: GNNConfig, pregather: bool, optimizer,
     returned ones). With ``stacked=True`` ``dev`` is a list of K plans'
     device args and ``denom`` a (K,) tensor; the fused step runs over the
     K iterations in order and the call returns (K,) losses. ``streamed``
-    as for :func:`get_compiled_iteration`."""
+    and ``mesh`` as for :func:`get_compiled_iteration`; under a mesh the
+    gradients every rank applies are the same all-reduced sums, so the
+    replicated parameters stay equal on every rank."""
     key = ("fused", cfg, bool(pregather), bool(fold_returns),
-           optimizer_cache_key(optimizer), bool(stacked), bool(streamed))
+           optimizer_cache_key(optimizer), bool(stacked), bool(streamed),
+           _mesh_key(mesh))
     fn = _COMPILE_CACHE.get(key)
     if fn is None:
-        kind = "emulated-fused" + ("-stacked" if stacked else "")
+        kind = (("emulated" if mesh is None else "sharded") + "-fused"
+                + ("-stacked" if stacked else ""))
+        grads_fn, comm = _grads_callable(cfg, pregather, fold_returns,
+                                         streamed, mesh)
 
         def one(params, opt_state, table, cache, dev, denom):
-            grads, loss = _emulated_iteration(params, table, cache, dev,
-                                              denom, cfg, pregather,
-                                              fold_returns, streamed)
+            grads, loss = grads_fn(params, table, cache, dev, denom)
             params, opt_state = optimizer.update(grads, opt_state, params)
             return params, opt_state, loss
 
@@ -433,8 +700,38 @@ def get_compiled_train_step(cfg: GNNConfig, pregather: bool, optimizer,
 
         fn = _tracing(kind, cfg, pregather, many if stacked else one,
                       dev_pos=4)
+        fn.comm = comm
+        fn.mesh = mesh
         _COMPILE_CACHE[key] = fn
     return fn
+
+
+def make_sharded_iteration(cfg: GNNConfig, pregather: bool, mesh,
+                           fold_returns: bool = False):
+    """This rank's shard-body iteration ``fn(params, table, cache, dev,
+    denom)`` for repeated use by a training loop (cached per config)."""
+    return get_compiled_iteration(cfg, pregather, fold_returns=fold_returns,
+                                  mesh=mesh)
+
+
+def collective_counts(fn, *args) -> dict:
+    """Collective *executions* in one call of ``fn(*args)``.
+
+    The reference walks ``fn``'s jaxpr, multiplying a collective inside a
+    ``scan`` by its trip count; the port has no jaxpr, so it runs ``fn``
+    once (a fused step therefore applies its update) and returns what the
+    callable's :class:`ShardComm` counted — ``{"all_to_all": n,
+    "all_reduce": m}``, zero entries left out; an emulated callable runs
+    none. Per iteration: pregather and folded per-step mode run 2
+    all_to_alls, unfolded per-step mode T+1, streamed mode none; every
+    mode runs one all_reduce."""
+    comm = getattr(fn, "comm", None)
+    before = dict(comm.counts) if comm is not None else {}
+    fn(*args)
+    if comm is None:
+        return {}
+    return {k: v - before[k] for k, v in comm.counts.items()
+            if v - before[k]}
 
 
 # ---------------------------------------------------------------------------
@@ -602,72 +899,104 @@ def empty_cache_table(num_shards: int, feature_dim: int,
     return tab
 
 
+def shard_slice(x, shard: Optional[int], num_shards: int):
+    """This rank's slice ``x[shard:shard+1]`` of a leading-N array or
+    tensor (the shard axis kept at size 1, as ``shard_map`` passes it);
+    ``x`` itself without a shard, or when it already holds one shard's
+    slice (leading axis 1)."""
+    if shard is None or x is None or x.shape[0] == 1:
+        return x
+    if x.shape[0] != num_shards:
+        raise ValueError(f"leading axis {x.shape[0]} is neither the "
+                         f"{num_shards} shards nor one shard's slice")
+    return x[shard:shard + 1]
+
+
 def prepare_iteration_args(table_global, plan, cache=None, device=None,
-                           fault_point: bool = True):
+                           fault_point: bool = True, mesh=None):
     """Shared argument prep for :func:`run_iteration` /
     :func:`run_train_step`: validates the table and cache against the plan
     and returns device-ready ``(table, cache, dev, denom)``.
 
     The iteration runs on the table's device when it is a tensor, else on
-    ``device`` (default ``cuda``). Fast path: a plan whose device args were
-    committed by the pipeline uploader (``plan.committed``) skips the
-    upload (:func:`plan_device_args`); an uncommitted plan has its indices
-    checked on the host here, then uploads. The comm fault point runs
-    first, before anything reaches the device, unless the caller ran it
-    already (``fault_point=False``).
+    ``device`` (default ``cuda``; under a mesh, the rank's device). Fast
+    path: a plan whose device args were committed by the pipeline uploader
+    (``plan.committed``) skips the upload (:func:`plan_device_args`); an
+    uncommitted plan has its indices checked on the host here, then
+    uploads. The comm fault point runs first, before anything reaches the
+    device, unless the caller ran it already (``fault_point=False``).
+
+    Under a ``mesh`` (one rank per shard, the reference's precondition)
+    every leading-N argument — table, cache, plan args — becomes this
+    rank's slice with the shard axis kept at size 1, and only that slice
+    is uploaded. A table or cache that already holds one shard's slice
+    passes as it is.
 
     Streamed plans: no resident table exists — ``table_global=None`` is
     replaced by the shared zero-width placeholder on ``device`` (the
     plan's feature blocks ride in its device args)."""
     if fault_point:
         comm_fault_point(plan)
+    shard = None
+    n_local = plan.num_shards
+    if mesh is not None:
+        check_mesh(mesh, plan.num_shards)
+        shard, n_local = mesh_rank(mesh), 1
+        if device is None and not isinstance(table_global, torch.Tensor):
+            device = mesh_device(mesh)
     if table_global is None:
         if not plan.streamed:
             raise ValueError("table_global=None is only valid for streamed "
                              "plans (tiered FeatureStore)")
         fl = plan.feat_local
-        table_global = empty_cache_table(plan.num_shards, fl.shape[-1],
+        table_global = empty_cache_table(n_local, fl.shape[-1],
                                          torch_dtype(fl.dtype), device)
+    table_global = shard_slice(table_global, shard, plan.num_shards)
     if not isinstance(table_global, torch.Tensor):
         table_global = upload(table_global, resolve_device(device))
     device = table_global.device
     # a streamed plan never reads the table: no shape to check
     if not plan.streamed and \
-            tuple(table_global.shape[:2]) != (plan.num_shards,
-                                              plan.local_rows):
+            tuple(table_global.shape[:2]) != (n_local, plan.local_rows):
         raise ValueError(f"table {tuple(table_global.shape)} does not match "
-                         f"the plan's ({plan.num_shards}, {plan.local_rows}, "
-                         f"d)")
+                         f"the plan's ({n_local}, {plan.local_rows}, d)")
     if cache is None:
         if plan.c_max:
             raise ValueError(
                 f"plan was built against a cache (c_max={plan.c_max}) "
                 "but no cache table was passed")
-        cache = empty_cache_table(plan.num_shards, table_global.shape[-1],
+        cache = empty_cache_table(n_local, table_global.shape[-1],
                                   table_global.dtype, device)
     else:
-        cache = upload(cache, device)
+        cache = upload(shard_slice(cache, shard, plan.num_shards), device)
         if int(cache.shape[1]) != int(plan.c_max):
             raise ValueError(
                 f"cache table height {cache.shape[1]} != plan c_max "
                 f"{plan.c_max} (stale cache?)")
-    dev, denom = plan_device_args(plan, device)
+    dev, denom = plan_device_args(plan, device, shard)
     return table_global, cache, dev, denom
 
 
-def plan_device_args(plan, device: torch.device):
-    """``(dev, denom)`` of one plan on ``device``: the committed tensors
-    when the pipeline uploaded them — the current stream then waits for the
+def plan_device_args(plan, device: torch.device,
+                     shard: Optional[int] = None):
+    """``(dev, denom)`` of one plan on ``device`` (with ``shard``: that
+    shard's slice of every leading-N leaf): the committed tensors when the
+    pipeline uploaded them — the current stream then waits for the
     upload's event, and each tensor is marked as used on that stream so the
     caching allocator does not hand its memory to a later upload while this
     stream still reads it — else the plan's arrays, checked and uploaded."""
     committed = plan.committed
     if committed is None:
         check_plan_indices(plan)
-        dev = tree_map(lambda x: upload(x, device), plan.device_args())
+        dev = tree_map(lambda x: upload(shard_slice(x, shard,
+                                                    plan.num_shards),
+                                        device), plan.device_args())
         denom = torch.tensor(float(plan.global_batch), dtype=torch.float32,
                              device=device)
         return dev, denom
+    if committed.get("shard") != shard:
+        raise ValueError(f"plan committed for shard {committed.get('shard')}"
+                         f" dispatched for shard {shard}")
     dev, denom = committed["dev"], committed["denom"]
     if committed["event"] is not None:
         stream = torch.cuda.current_stream(device)
@@ -678,9 +1007,14 @@ def plan_device_args(plan, device: torch.device):
 
 
 def run_iteration(params, table_global, plan, cfg: GNNConfig, cache=None,
-                  fold_returns: Optional[bool] = None, device=None):
-    """Execute one planned iteration on one device (all shards emulated).
+                  fold_returns: Optional[bool] = None, device=None,
+                  mesh=None):
+    """Execute one planned iteration.
 
+    Without a ``mesh``, all shards are emulated on one device. With one
+    (a 1-D ``DeviceMesh`` of ``plan.num_shards`` ranks, every rank calling
+    with the same plan), this rank runs its own shard with real
+    collectives (same numerics up to the gradient sum's order).
     ``cache`` is the (N, c_max, d) remote-feature table a cache-aware plan
     was built against (required iff plan.c_max > 0; its height must match
     the plan's). ``fold_returns=None`` applies the
@@ -689,25 +1023,27 @@ def run_iteration(params, table_global, plan, cfg: GNNConfig, cache=None,
     update is the caller's (see :func:`run_train_step` for the fused
     variant)."""
     table_global, cache, dev, denom = prepare_iteration_args(
-        table_global, plan, cache, device)
+        table_global, plan, cache, device, mesh=mesh)
     fn = get_compiled_iteration(cfg, plan.pregather,
                                 fold_returns=resolve_fold_returns(
                                     plan, fold_returns),
-                                streamed=plan.streamed)
+                                streamed=plan.streamed, mesh=mesh)
     return fn(params, table_global, cache, dev, denom)
 
 
 def run_train_step(params, opt_state, table_global, plan, cfg: GNNConfig,
                    optimizer, cache=None,
-                   fold_returns: Optional[bool] = None, device=None):
+                   fold_returns: Optional[bool] = None, device=None,
+                   mesh=None):
     """Execute one planned iteration *and* the optimizer update as one
     fused call. Returns ``(params, opt_state, loss)``; the parameters and
     moments are updated in place. The loss stays on the device (no host
-    sync); call ``float(loss)`` only when the value is needed."""
+    sync); call ``float(loss)`` only when the value is needed. ``mesh`` as
+    for :func:`run_iteration`."""
     table_global, cache, dev, denom = prepare_iteration_args(
-        table_global, plan, cache, device)
+        table_global, plan, cache, device, mesh=mesh)
     fn = get_compiled_train_step(cfg, plan.pregather, optimizer,
                                  fold_returns=resolve_fold_returns(
                                      plan, fold_returns),
-                                 streamed=plan.streamed)
+                                 streamed=plan.streamed, mesh=mesh)
     return fn(params, opt_state, table_global, cache, dev, denom)

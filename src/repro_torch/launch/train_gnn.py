@@ -18,14 +18,28 @@ Presets:
 
     PYTHONPATH=src python -m repro_torch.launch.train_gnn --preset smoke \\
         --device cpu [--ckpt-dir DIR] [--resume]
+
+Under torchrun the launcher trains over a device mesh, one process per
+shard: it reads ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``, joins a
+process group (NCCL on CUDA, gloo only with ``--device cpu``; a mismatched
+collective fails after ``PG_TIMEOUT_S`` seconds instead of hanging),
+builds a 1-D ``DeviceMesh`` over the ``"data"`` axis and requires
+``--shards == WORLD_SIZE``. Every rank builds the same dataset and plans;
+rank 0 prints and writes the checkpoints. Without torchrun's environment
+all shards are emulated on one device, as above.
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m \\
+        repro_torch.launch.train_gnn --preset smoke --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import datetime
 import os
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import distributed as engine
 from repro_torch.graph import make_dataset
@@ -33,6 +47,8 @@ from repro_torch.graph.partition import community_partition, shard_features
 from repro_torch.models.gnn import GNNConfig, init_gnn, model_param_bytes
 from repro_torch.optim import adamw, cosine_schedule
 from repro_torch.train import Trainer
+
+PG_TIMEOUT_S = 120   # a collective that waits longer fails the run
 
 PRESETS = {
     "smoke": dict(scale=0.03, hidden=64, fanout=4, layers=2, batch=16,
@@ -61,6 +77,9 @@ def main(argv=None) -> None:
                     help="torch device (default cuda)")
     args = ap.parse_args(argv)
     P = PRESETS[args.preset]
+    mesh = join_mesh(args) if "WORLD_SIZE" in os.environ else None
+    say = print if mesh is None or dist.get_rank() == 0 else (
+        lambda *a, **k: None)
 
     ds = make_dataset("products", scale=P["scale"], seed=0,
                       feat_dim=P["dim"])
@@ -69,11 +88,13 @@ def main(argv=None) -> None:
     cfg = GNNConfig(model="sage", num_layers=P["layers"],
                     hidden_dim=P["hidden"], feature_dim=ds.feature_dim,
                     num_classes=ds.num_classes, fanout=P["fanout"])
-    params = init_gnn(cfg, torch.Generator().manual_seed(0), args.device)
-    print(f"dataset: {ds.num_vertices} vertices; model: "
+    params = init_gnn(cfg, torch.Generator().manual_seed(0),
+                      "cpu" if mesh is not None else args.device)
+    say(f"dataset: {ds.num_vertices} vertices; model: "
           f"{model_param_bytes(params) / 1e6:.1f} MB params "
           f"({model_param_bytes(params) / 4 / 1e6:.1f}M) on "
-          f"{next(params.parameters()).device}")
+          + (f"{next(params.parameters()).device}" if mesh is None else
+             f"a {mesh.device_type} mesh of {mesh.size()} ranks"))
 
     total = P["epochs"] * P["iters"]
     opt = adamw(cosine_schedule(3e-3, warmup=10, total=total),
@@ -86,19 +107,21 @@ def main(argv=None) -> None:
         params=params, strategy=args.strategy,
         train_vertices=ds.train_vertices(), ckpt_dir=args.ckpt_dir,
         pipeline=not args.no_pipeline, pipeline_stack=args.stack,
-        device=args.device)
+        device=args.device, mesh=mesh)
 
     tc0 = engine.trace_count()
     stats = trainer.fit(epochs=P["epochs"], iters_per_epoch=P["iters"],
                         batch_per_model=P["batch"] // args.shards,
                         eval_every=1, resume=args.resume, log=print)
+    if mesh is not None:
+        dist.destroy_process_group()
     if not stats:
-        print("nothing to do: checkpoint already covers every epoch "
+        say("nothing to do: checkpoint already covers every epoch "
               f"(step {trainer.global_step})")
         return
     first, rest = stats[0], stats[1:]
     if rest:
-        print(f"compile-once: epoch 0 {first.time_s:.2f}s "
+        say(f"compile-once: epoch 0 {first.time_s:.2f}s "
               f"(incl. first calls) vs epochs>=1 mean "
               f"{sum(s.time_s for s in rest) / len(rest):.2f}s; "
               f"{engine.trace_count() - tc0} traces total, "
@@ -106,13 +129,37 @@ def main(argv=None) -> None:
               f"budget {trainer.budget.signature()} "
               f"({trainer.budget.rebuckets} rebuckets)")
         if first.pipelined:
-            print(f"pipeline: steady "
+            say(f"pipeline: steady "
                   f"{1000 * rest[-1].steady_time_s / P['iters']:.1f} ms/iter "
                   f"(synced window), dispatch "
                   f"{1000 * rest[-1].dispatch_s / P['iters']:.1f} ms/iter, "
                   f"{trainer._uploader.uploads} committed uploads, "
                   f"{trainer._uploader.shape_changes} shape changes")
-    print(f"done; checkpoints in {args.ckpt_dir}")
+    say(f"done; checkpoints in {args.ckpt_dir}")
+
+
+def join_mesh(args):
+    """Under torchrun: this process's place in a 1-D mesh of WORLD_SIZE
+    ranks over the ``"data"`` axis, one rank per shard."""
+    from torch.distributed.device_mesh import init_device_mesh
+    world = int(os.environ["WORLD_SIZE"])
+    if args.shards != world:
+        raise SystemExit(f"--shards {args.shards} must equal WORLD_SIZE "
+                         f"{world}: one process per shard")
+    device_type = torch.device(args.device or "cuda").type
+    if device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("no CUDA device is available; pass --device "
+                             "cpu to train over gloo on the CPU")
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        backend = "nccl"
+    elif device_type == "cpu":
+        backend = "gloo"
+    else:
+        raise SystemExit(f"no process-group backend for {device_type}")
+    dist.init_process_group(
+        backend, timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    return init_device_mesh(device_type, (world,), mesh_dim_names=("data",))
 
 
 if __name__ == "__main__":

@@ -131,13 +131,20 @@ class CommCounters:
 
 def resilient_call(fn: Callable, *, policy: RetryPolicy,
                    counters: Optional[CommCounters] = None,
-                   epoch: int = -1, it: int = -1):
+                   epoch: int = -1, it: int = -1,
+                   agree: Optional[Callable[[bool], bool]] = None):
     """Run ``fn()`` under the retry policy.
 
     The attempt number is published via the ``guarded_attempt`` context var
     so the fault injector knows a retry loop is present (comm_drop and
     flapping peer_death faults only raise under a guard, and only while
-    ``attempt < drops``)."""
+    ``attempt < drops``).
+
+    ``agree`` (under a device mesh, one process per shard): every rank
+    retries the same attempts, but the deadline test reads each rank's own
+    clock — ``agree(gave_up)`` returns whether ANY rank gives up, so all
+    of them give up together or retry together and enter the same next
+    collective."""
     t0 = time.perf_counter()
     attempt = 0
     peer = -1
@@ -156,7 +163,11 @@ def resilient_call(fn: Callable, *, policy: RetryPolicy,
                        peer=peer)
             attempt += 1
             elapsed = time.perf_counter() - t0
-            if attempt > policy.max_retries or elapsed > policy.deadline_s:
+            give_up = attempt > policy.max_retries \
+                or elapsed > policy.deadline_s
+            if agree is not None:
+                give_up = agree(give_up)
+            if give_up:
                 if counters is not None:
                     counters.timeouts += 1
                 _obs_metrics.inc("comm.timeouts")

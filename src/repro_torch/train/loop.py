@@ -62,9 +62,26 @@ The port of ``repro.train.loop``:
   death recovers by ``rejoin`` (bit-identical resume from the shared
   checkpoint) or by elastic shrink (``redistribute``/``adopt``).
 
-Entry points run on ``cuda`` unless ``device="cpu"`` is given. Not ported
-yet: a device ``mesh``, which raises ``NotImplementedError`` naming ROADMAP
-Queue 1 item 8.
+* **Device mesh** (``mesh=`` a 1-D ``torch.distributed`` ``DeviceMesh``,
+  one process per shard: NCCL on the card, gloo on the CPU) — SPMD: every
+  rank runs this same loop with the same seeds, builds the same plans and
+  dispatches only its own shard through the engine's sharded callables
+  (real all_to_all exchanges and one gradient all_reduce per iteration);
+  the parameters are replicated and stay equal on every rank. Each rank
+  uploads only its own shard's table, cache and plan slices, and computes
+  on ``cuda:LOCAL_RANK`` (the CPU for a CPU mesh). A host decision that
+  precedes a collective must come out the same on every rank, or the
+  ranks enter different collectives: the ones read from a clock or a
+  thread's timing are agreed with a small ``all_reduce(MAX)`` on the mesh
+  — the merge controller is fed the slowest rank's steady epoch time, the
+  retry guard gives up when any rank's deadline passed, and each plan wait
+  ends the same way on every rank (a stall or a background failure on one
+  rank raises on all of them). Rank 0 writes checkpoints while the others
+  wait at a barrier, every rank loads them on resume, and only rank 0
+  logs. Elastic shrink under a mesh raises ``NotImplementedError``, as in
+  the reference; ``membership_mode="rejoin"`` works.
+
+Entry points run on ``cuda`` unless ``device="cpu"`` is given.
 
 Typical use::
 
@@ -88,6 +105,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.checkpoint import (latest_step, load_checkpoint,
                                     save_checkpoint)
@@ -171,11 +189,6 @@ class EpochStats:
     #                                  running this epoch (rejoin or shrink)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               f"item: {item})")
-
-
 class Trainer:
     """Compile-once training loop over the repro_torch.core planner and
     engine."""
@@ -209,9 +222,19 @@ class Trainer:
                  fold_returns: Optional[bool] = None,
                  resilience=None,
                  device=None):
+        self.mesh = mesh
+        self._shard: Optional[int] = None  # this rank's shard under a mesh
         if mesh is not None:
-            raise _not_ported("training over a device mesh",
-                              "8, multi-GPU ShardComm over NCCL")
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a torch.distributed "
+                                f"DeviceMesh, got {type(mesh).__name__}")
+            self._shard = engine.mesh_rank(mesh)
+            mesh_dev = engine.mesh_device(mesh)
+            if device is not None and \
+                    torch.device(device).type != mesh_dev.type:
+                raise ValueError(f"device {device} on a "
+                                 f"{mesh.device_type} mesh")
+            device = mesh_dev
         self.device = resolve_device(device)
         self.graph = graph
         self.labels = np.asarray(labels)
@@ -229,6 +252,8 @@ class Trainer:
                 np.asarray(table), owner=self.owner,
                 local_idx=self.local_idx)
         self.streamed = not self.store.resident
+        if mesh is not None:
+            engine.check_mesh(mesh, self.num_shards)
         if self.streamed and not pregather:
             raise ValueError(
                 "a tiered FeatureStore requires pregather=True: per-step "
@@ -310,7 +335,8 @@ class Trainer:
                 # cache already has its final device shape
                 self.cache_store = CacheStore(
                     self.num_shards, d, c_max=next_bucket(self.cache_rows),
-                    dtype=self.store.dtype, device=self.device)
+                    dtype=self.store.dtype, device=self.device,
+                    shard=self._shard)
                 self._cache_policy = make_policy(
                     cache_policy, graph=self.graph, owner=self.owner,
                     num_shards=self.num_shards)
@@ -368,12 +394,21 @@ class Trainer:
     def num_shards(self) -> int:
         return self.store.num_shards
 
+    @property
+    def is_lead(self) -> bool:
+        """Rank 0 of the mesh (or no mesh): the one rank that logs and
+        writes checkpoints."""
+        return self._shard is None or self._shard == 0
+
     def _device_table(self) -> Optional[torch.Tensor]:
-        """The resident store's (N, local_rows, d) table on the device;
-        None for a tiered store (streamed mode has no device table)."""
+        """The resident store's (N, local_rows, d) table on the device —
+        under a mesh only this rank's (1, local_rows, d) slice; None for a
+        tiered store (streamed mode has no device table)."""
         if not self.store.resident:
             return None
-        return engine.upload(self.store.as_dense(), self.device)
+        return engine.upload(engine.shard_slice(
+            self.store.as_dense(), self._shard, self.num_shards),
+            self.device)
 
     def _roots_for(self, epoch: int, it: int, batch_per_model: int):
         if self.root_fn is not None:
@@ -645,8 +680,9 @@ class Trainer:
         disabled cache and, in streamed mode, for the absent feature
         table."""
         return engine.empty_cache_table(
-            self.num_shards, self.store.feature_dim,
-            engine.torch_dtype(self.store.dtype), self.device)
+            1 if self.mesh is not None else self.num_shards,
+            self.store.feature_dim, engine.torch_dtype(self.store.dtype),
+            self.device)
 
     def train_step(self, plan: IterationPlan):
         """Grads, then the optimizer update as a separate call (the
@@ -655,7 +691,7 @@ class Trainer:
         grads, loss = engine.run_iteration(self.params, self.table, plan,
                                            self.cfg, cache=cache_tab,
                                            fold_returns=self.fold_returns,
-                                           device=self.device)
+                                           device=self.device, mesh=self.mesh)
         self.params, self.opt_state = self.optimizer.update(
             grads, self.opt_state, self.params)
         self.global_step += 1
@@ -670,10 +706,10 @@ class Trainer:
             self.cfg, plan.pregather, self.optimizer,
             fold_returns=engine.resolve_fold_returns(plan,
                                                      self.fold_returns),
-            streamed=plan.streamed)
+            streamed=plan.streamed, mesh=self.mesh)
         table, cache_tab, dev, denom = engine.prepare_iteration_args(
             self.table, plan, cache_tab, device=self.device,
-            fault_point=fault_point)
+            fault_point=fault_point, mesh=self.mesh)
         self.params, self.opt_state, loss = fn(
             self.params, self.opt_state, table, cache_tab, dev, denom)
         self.global_step += 1
@@ -706,8 +742,8 @@ class Trainer:
         fn = engine.get_compiled_train_step(
             self.cfg, p0.pregather, self.optimizer,
             fold_returns=engine.resolve_fold_returns(p0, self.fold_returns),
-            stacked=True, streamed=p0.streamed)
-        devs, denoms = stack_committed(plans, self.device)
+            stacked=True, streamed=p0.streamed, mesh=self.mesh)
+        devs, denoms = stack_committed(plans, self.device, self._shard)
         table = self.table if self.table is not None else self._empty_table()
         self.params, self.opt_state, losses = fn(
             self.params, self.opt_state, table, cache_tab, devs, denoms)
@@ -743,12 +779,15 @@ class Trainer:
         dispatch boundary" contract), then run the dispatch under the comm
         retry guard. Transient comm faults fire during argument staging,
         BEFORE the in-place update (a stacked group runs every plan's fault
-        point first), so a retry never applies a step twice."""
+        point first), so a retry never applies a step twice. Under a mesh
+        the pending background errors were checked, and agreed, at the plan
+        wait just before (:meth:`_plan_result`), and the retry guard's
+        deadline is agreed across ranks."""
         if self.membership is not None:
             for p in plans:
                 self.membership.check_generation(
                     getattr(p, "generation", -1), epoch=epoch, it=it)
-        if self._supervisor is not None:
+        if self._supervisor is not None and self.mesh is None:
             self._supervisor.check()
         if len(plans) > 1:
             fn = lambda: self._dispatch_stacked(plans)  # noqa: E731
@@ -760,7 +799,9 @@ class Trainer:
             return fn()
         return resilient_call(fn, policy=self.resilience.retry,
                               counters=self._comm_counters,
-                              epoch=epoch, it=it)
+                              epoch=epoch, it=it,
+                              agree=None if self.mesh is None
+                              else self._agree_any)
 
     def _abandon(self, futures, exc: BaseException) -> None:
         """An epoch attempt failed with plan builds in flight: cancel the
@@ -776,10 +817,48 @@ class Trainer:
             futures_wait(running, timeout=None if policy is None
                          else policy.stall_deadline_s)
 
+    def _agree_any(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on any rank of the mesh."""
+        return engine.agree_max([flag], self.mesh)[0] > 0
+
+    # how a plan wait ended, in the order the agreement takes the max
+    _WAIT_OK, _WAIT_FAILED, _WAIT_STALLED = 0, 1, 2
+
     def _plan_result(self, fut, epoch: int, it: int):
         """Wait for a plan future under the stall deadline — a wedged
         prefetch thread becomes a StallError instead of hanging fit().
-        The wait is on the future alone, never on the device."""
+        The wait is on the future alone, never on the device.
+
+        Under a mesh the wait also takes the supervisor's pending
+        background error, and how it ended is agreed across ranks before
+        anyone dispatches: whether a thread failed or a deadline passed
+        depends on each rank's own timing, so a failure on any rank raises
+        on every rank (the one with its own error raises it, the others an
+        error of the same site and kind), and all of them recover
+        together."""
+        if self.mesh is None or self.resilience is None:
+            return self._wait_plan(fut, epoch, it)
+        plan, err, code = None, None, self._WAIT_OK
+        try:
+            plan = self._wait_plan(fut, epoch, it)
+            if self._supervisor is not None:
+                self._supervisor.check()
+        except StallError as e:
+            err, code = e, self._WAIT_STALLED
+        except BackgroundError as e:
+            err, code = e, self._WAIT_FAILED
+        agreed = int(engine.agree_max([code], self.mesh)[0])
+        if agreed == self._WAIT_OK:
+            return plan
+        if agreed == code:
+            raise err
+        if agreed == self._WAIT_STALLED:
+            raise StallError("prefetch", epoch, it,
+                             self.resilience.stall_deadline_s)
+        raise BackgroundError("prefetch", epoch, it, RuntimeError(
+            "a background job failed on another rank of the mesh"))
+
+    def _wait_plan(self, fut, epoch: int, it: int):
         policy = self.resilience
         if policy is None or policy.stall_deadline_s is None:
             return fut.result()
@@ -953,7 +1032,13 @@ class Trainer:
         are keyed by merge pattern, and a new world's plans re-bucket when
         they outgrow them. Numerics legitimately change (other shard
         batches, other reduction groups), so correctness is held to a loss
-        tolerance against a fresh run at the same world size."""
+        tolerance against a fresh run at the same world size. Under a
+        device mesh it raises, as the reference does: a shrink would need
+        a new mesh of P-1 processes."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "elastic shrink under a device mesh needs a mesh rebuild; "
+                "use membership_mode='rejoin' on multi-device runs")
         from repro_torch.membership import rebuild_world
         wr = rebuild_world(self.part, dead, self.num_shards, mode=mode)
         # the dead rank leaves the world entirely; its registry entry must
@@ -1187,7 +1272,8 @@ class Trainer:
         if self.pipeline and self._uploader is None:
             self._uploader = PlanUploader(budget=self.budget,
                                           device=self.device,
-                                          view=self.membership)
+                                          view=self.membership,
+                                          shard=self._shard)
         # the cache refresh computation gets its own thread: it must not
         # block the plan double-buffer (and vice versa). The tiered store's
         # readahead forecast shares it (both are epoch-boundary jobs on the
@@ -1211,7 +1297,11 @@ class Trainer:
                                else res.wall_s / iters_per_epoch)
                 steady_epoch = steady_iter * iters_per_epoch
                 if self.controller is not None and compile_free:
-                    self.controller.record_epoch_time(steady_epoch)
+                    # under a mesh: the slowest rank's time, the same on
+                    # every rank, so every rank takes the same merge step
+                    self.controller.record_epoch_time(
+                        steady_epoch if self.mesh is None
+                        else engine.agree_max([steady_epoch], self.mesh)[0])
                 acc = (self.evaluate(n_eval=n_eval)
                        if eval_every and (epoch + 1) % eval_every == 0
                        else None)
@@ -1249,8 +1339,9 @@ class Trainer:
                     membership_recoveries=rmeta.get(
                         "membership_recoveries", 0))
                 stats.append(st)
-                obs_metrics.publish_epoch_stats(st)
-                if log is not None:
+                if self.is_lead:
+                    obs_metrics.publish_epoch_stats(st)
+                if log is not None and self.is_lead:
                     log(f"epoch {epoch}: loss {st.loss:.4f} "
                         f"steps {st.num_steps} remote_rows {st.remote_rows} "
                         f"traces {st.traces} wall {st.time_s:.2f}s "
@@ -1332,9 +1423,14 @@ class Trainer:
                  # into the original run's shapes — no probe, no new
                  # signature in its first epoch
                  "budget_state": self.budget.state_dict()}
-        save_checkpoint(self.ckpt_dir, self.global_step,
-                        {"params": self.params, "opt": self.opt_state},
-                        extra=extra, keep=self.ckpt_keep)
+        if self.is_lead:
+            save_checkpoint(self.ckpt_dir, self.global_step,
+                            {"params": self.params, "opt": self.opt_state},
+                            extra=extra, keep=self.ckpt_keep)
+        if self.mesh is not None:
+            # the parameters are replicated: rank 0 writes the one
+            # checkpoint, the others wait here until it is durable
+            engine.agree_max([0], self.mesh)
 
     def _maybe_resume(self) -> int:
         if not self.ckpt_dir or latest_step(self.ckpt_dir) is None:

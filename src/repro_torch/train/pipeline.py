@@ -67,20 +67,27 @@ class PlanUploader:
     ``commit(plan)`` runs on the plan prefetch thread: it checks the plan's
     indices on the host (once per plan), uploads its device-args tree and
     the float32 denom scalar, and stamps ``plan.committed = {"dev",
-    "denom", "event"}`` for the engine's fast path. On CUDA the upload is
-    asynchronous on the uploader's own stream (see the module doc); on the
-    CPU the tensors wrap the plan's arrays and ``event`` is None.
+    "denom", "event", "shard"}`` for the engine's fast path. On CUDA the
+    upload is asynchronous on the uploader's own stream (see the module
+    doc); on the CPU the tensors wrap the plan's arrays and ``event`` is
+    None.
 
     Shape discipline: within one merge pattern every upload must carry the
     same shape signature. Deviations are counted in ``shape_changes`` — a
     legitimate change exists only at an explicit budget re-bucket; with
     ``budget`` given, every committed plan is also checked against the
     ShapeBudget bucket it claims to be built under.
+
+    Under a device mesh (``shard`` = this rank) only the rank's slice of
+    every leading-N array is staged and uploaded, the shard axis kept at
+    size 1, and the commit records the shard it was made for.
     """
 
-    def __init__(self, budget=None, device=None, view=None):
+    def __init__(self, budget=None, device=None, view=None,
+                 shard: Optional[int] = None):
         self.budget = budget
         self.view = view               # MembershipView (world-stale refusal)
+        self.shard = shard
         self.device = resolve_device(device)
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -90,7 +97,9 @@ class PlanUploader:
         self.shape_changes = 0
 
     def _upload(self, plan):
-        host = plan.device_args()
+        host = engine.tree_map(
+            lambda x: engine.shard_slice(x, self.shard, plan.num_shards),
+            plan.device_args())
         denom = torch.tensor(float(plan.global_batch), dtype=torch.float32)
         if self._stream is None:
             return engine.tree_map(lambda x: engine.upload(x, self.device),
@@ -149,15 +158,18 @@ class PlanUploader:
             self.shape_changes += 1
         self._sigs[key] = sig
         self._buckets[key] = expect
-        plan.committed = {"dev": dev, "denom": denom, "event": event}
+        plan.committed = {"dev": dev, "denom": denom, "event": event,
+                          "shard": self.shard}
         self.uploads += 1
 
 
-def stack_committed(plans, device: torch.device):
+def stack_committed(plans, device: torch.device,
+                    shard: Optional[int] = None):
     """K plans' device args for the stacked fused step: a list of their
-    trees (committed ones as uploaded, others checked and uploaded now) and
-    their denoms stacked into a (K,) tensor."""
-    args = [engine.plan_device_args(p, device) for p in plans]
+    trees (committed ones as uploaded, others checked and uploaded now —
+    with ``shard``, that shard's slices) and their denoms stacked into a
+    (K,) tensor."""
+    args = [engine.plan_device_args(p, device, shard) for p in plans]
     return [dev for dev, _ in args], torch.stack([d for _, d in args])
 
 

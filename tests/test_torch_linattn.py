@@ -100,6 +100,57 @@ def test_decode_step_matches_reference(BH, T, dk, dv, chunk, u_shape):
     np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), **TIGHT)
 
 
+# Outside the documented domain w ∈ (0.5, 1], as measured on the CPU at
+# BH 2, T 128, dk = dv = 16. Within a chunk the formulation divides by e,
+# the cumulative product of w, which leaves float32 once w^chunk falls
+# below its smallest subnormal (1.4e-45). The Pallas kernel in interpret
+# mode (XLA on the CPU) flushes subnormals to zero, so it loses a chunk
+# sooner, below its smallest normal (1.2e-38); the port's plain version
+# keeps subnormals, as PyTorch does on the CPU. (The CUDA kernel outside
+# the domain is not measured.)
+#   "agrees": every output finite, within 5e-4 of the Pallas kernel and
+#             of the token scan (measured at most 7.6e-6 and 5.7e-6);
+#   "underflows": 0.1^64 = 1e-64. From step 39 of the first chunk on, the
+#             port's outputs go non-finite (the Pallas kernel's from step
+#             38, a superset of positions); where the port's are finite
+#             they still match the token scan (3.8e-6), while the Pallas
+#             kernel's finite ones are up to 4.06 off it. The final state
+#             is non-finite in both.
+OUTSIDE_DOMAIN = {(0.45, 16): "agrees", (0.45, 64): "agrees",
+                  (0.3, 16): "agrees", (0.3, 64): "agrees",
+                  (0.1, 16): "agrees", (0.1, 64): "underflows"}
+
+
+@pytest.mark.parametrize("w0,chunk", sorted(OUTSIDE_DOMAIN))
+def test_chunked_ref_outside_the_decay_domain(w0, chunk):
+    """The port's plain chunked version at a constant decay w0 below the
+    domain, against the Pallas kernel in interpret mode and the token scan,
+    pinned as measured (OUTSIDE_DOMAIN)."""
+    xs, _ = _inputs(2, 128, 16, 16, "dk")
+    xs = (*xs[:3], np.full_like(xs[3], w0), xs[4])
+    o_j, s_j = jax_linattn_chunked(*_j(xs), chunk=chunk, interpret=True)
+    o_t, s_t = ref.linattn_chunked_ref(*_t(xs), chunk=chunk)
+    o_s, _ = ref.linattn_ref(*_t(xs))
+    o_j, o_t, o_s = np.asarray(o_j), o_t.numpy(), o_s.numpy()
+    fin_j, fin_t = np.isfinite(o_j), np.isfinite(o_t)
+    if OUTSIDE_DOMAIN[(w0, chunk)] == "agrees":
+        assert fin_t.all() and fin_j.all()
+        np.testing.assert_allclose(o_t, o_j, **KERNEL_TOL)
+        np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j),
+                                   **KERNEL_TOL)
+        np.testing.assert_allclose(o_t, o_s, **KERNEL_TOL)
+    else:
+        # the first non-finite step; the non-finite state then carries
+        # into every later chunk
+        assert np.nonzero(~fin_t)[1].min() == 39
+        assert np.nonzero(~fin_j)[1].min() == 38
+        assert not fin_j[~fin_t].any()          # the port's NaNs ⊆ Pallas's
+        np.testing.assert_allclose(o_t[fin_t], o_s[fin_t], **KERNEL_TOL)
+        assert np.abs(o_j[fin_j] - o_s[fin_j]).max() > 1.0
+        assert not np.isfinite(s_t.numpy()).all()
+        assert not np.isfinite(np.asarray(s_j)).all()
+
+
 def test_cpu_dispatch_never_launches():
     """On the CPU ``ops.linattn`` takes the plain chunked version, with or
     without a state, and counts no kernel launch."""

@@ -655,17 +655,51 @@ def test_no_traces_after_epoch0(world):
     assert all(s.plans_built == 3 and s.plan_time_s > 0 for s in stats)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "8, multi-GPU")])
-def test_unported_options_raise(world, kw, item):
-    """What the port still lacks raises, naming its ROADMAP item: the
-    device mesh. (The tiered store and its disk_corrupt fault are ported:
-    see tests/test_torch_stream.py; checkpoints, resume, resilience and
-    membership: tests/test_torch_resume.py, _resilience.py and
-    _membership.py.)"""
+# Measured on the CPU (torch 2.13.0, jax 0.9.0): over these 80 AdamW
+# steps the per-epoch losses drifted from the reference's by at most
+# 3.0e-6 relative (epoch 7), and the final parameters by at most 4.6e-7 of
+# each leaf's largest |value|. Adam's mhat / (sqrt(vhat) + eps) magnifies
+# the float32 summation-order differences where vhat is small, so this
+# bound belongs to this run length only; the 9-step fits above keep
+# FIT_RTOL.
+LONG_FIT = dict(epochs=10, iters_per_epoch=8, batch_per_model=32)
+LONG_FIT_RTOL = 1e-5
+LONG_FIT_PARAM_RTOL = 5e-6
+
+
+def test_long_fit_matches_reference(world):
+    """Trainer.fit over 10 epochs x 8 iterations (80 AdamW steps, cosine
+    schedule, clipping, merging off) against the reference's Trainer:
+    per-epoch losses within LONG_FIT_RTOL, final parameters within
+    LONG_FIT_PARAM_RTOL of each leaf's largest |value|, equal eval
+    accuracy."""
     w = world
-    cfgs = _cfgs(w)
-    tree, _ = _params(cfgs[0])
-    _, make_t = _trainers(w, cfgs, tree)
-    with pytest.raises(NotImplementedError, match=item):
-        make_t(**kw)
+    cfg_j, cfg_t = _cfgs(w)
+    tree, _ = _params(cfg_j)
+    total = LONG_FIT["epochs"] * LONG_FIT["iters_per_epoch"]
+    key = ("cos", 3e-3, 10, total)
+    common = dict(labels=w["ds_t"].labels, part=w["part"], owner=w["owner"],
+                  local_idx=w["local_idx"], table=w["table"],
+                  train_vertices=w["tv"], merging=False)
+    tj = jax_train.Trainer(
+        graph=w["ds_j"].graph, cfg=cfg_j, params=tree, resilience=False,
+        optimizer=jax_optim.adamw(jax_optim.cosine_schedule(3e-3, 10, total),
+                                  weight_decay=1e-4, grad_clip=1.0, key=key),
+        **common)
+    tt = torch_train.Trainer(
+        graph=w["ds_t"].graph, cfg=cfg_t, device="cpu",
+        params=torch_models.params_from_jax(tree, device="cpu"),
+        optimizer=torch_optim.adamw(
+            torch_optim.cosine_schedule(3e-3, 10, total), weight_decay=1e-4,
+            grad_clip=1.0, key=key), **common)
+    st_j = tj.fit(**LONG_FIT)
+    st_t = tt.fit(**LONG_FIT)
+    assert tt.global_step == tj.global_step == total
+    np.testing.assert_allclose([s.loss for s in st_t],
+                               [s.loss for s in st_j], rtol=LONG_FIT_RTOL)
+    want = torch_models.params_from_jax(tj.params, device="cpu")
+    for a, b in zip(tt.params.leaves(), want.leaves()):
+        a, b = a.detach(), b.detach()
+        assert float((a - b).abs().max()) <= \
+            LONG_FIT_PARAM_RTOL * float(b.abs().max())
+    assert tt.evaluate() == tj.evaluate()
