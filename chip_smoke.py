@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-Drives the port's two serving paths and its GNN training path (resident,
-streamed from disk, over a device mesh, and the P³ baseline) end to end on
-the card, and holds every kernel it builds against its plain PyTorch
-version. Imports nothing of JAX and nothing of the JAX package. Phases
-(any failure ends the run with a non-zero exit and no result line):
+Drives the port's serving paths (GNN, RWKV6, dense), its GNN training
+path (resident, streamed from disk, over a device mesh, and the P³
+baseline) and its transformer training path end to end on the card, and
+holds every kernel it builds against its plain PyTorch version. Imports
+nothing of JAX and nothing of the JAX package. Phases (any failure ends
+the run with a non-zero exit and no result line):
 
   1. build    nvcc builds src/repro_torch/kernels/csrc/gather_agg.cu and
               csrc/linattn.cu for sm_90a into build/repro_torch_kernels/
@@ -139,6 +140,33 @@ version. Imports nothing of JAX and nothing of the JAX package. Phases
               zero errors; prints prefill time per bucket, decode time per
               token, tokens/s, latency p50/p99, and a profiled generate at
               the largest bucket (device busy share, time by kernel).
+  lm-wide     qwen2-1.5b at its published width, 2 layers, float32 (QKV
+              biases random): forward logits at B=2 S=256 on CUDA against
+              the port on the CPU, and prefill(256) + 8 decode steps
+              against the full forward on the card; h2o-danube-3-4b the
+              same way with a 4,608-token prompt, past its 4,096-token
+              window, so the KV ring wraps; loss_fn's loss and every grad
+              leaf at B=2 S=256, CUDA against the CPU, for qwen2-1.5b and
+              rwkv6-7b (2 layers), with no linattn launch (training
+              differentiates the plain chunked version). Each within 1e-4
+              of the largest |value|.
+  llm-dense   phase 7 with qwen2-1.5b at its published size (28 layers,
+              bf16, random weights): the same 64 prompts and measurements;
+              gates zero launches of every kernel (the dense path runs no
+              TPU kernel).
+  lm-train    the CUDA linattn refusing a q that requires grad; one accum-2
+              step against the accum-1 step on the 2-layer full-width
+              qwen2-1.5b in float32 (loss and accumulated grads within
+              1e-5, parameters at the reference's rtol 2e-3, atol 2e-5);
+              make_train_step with pick_optimizer's AdamW on token_batches:
+              qwen2-1.5b at full size (bf16, f32 moments), 6 steps at
+              batch 4 x 1,024, and rwkv6-7b at full width and 8 of its 32
+              layers (all 32 with their grads and f32 moments would take
+              about 90 GB), 4 steps at 2 x 1,024. Gates finite losses and
+              zero linattn launches; prints ms/step, tokens/s, 6*N*tokens/s
+              against the bf16 dense peak and peak memory, with the card,
+              and one more step of each under torch.profiler (device busy
+              share, time by kernel).
 
 Output: one line per measurement; then the kernels' JSON line (launches
 summed over the paths, per path under ``launches_by_path``; with --world
@@ -147,11 +175,14 @@ and last ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--requests 4096] [--qps 1000] [--seed 0]
     python3 chip_smoke.py --world 4        # on four cards
+    python3 chip_smoke.py --lm-only        # build, linattn, phases 6, 7,
+                                           # lm-wide, llm-dense, lm-train
 """
 from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import datetime
 import json
 import os
@@ -176,7 +207,7 @@ from repro_torch.core.comm_model import (FABRICS, ModelSpec,  # noqa: E402
                                          hopgnn_bytes, lo_bytes,
                                          model_centric_bytes, naive_fc_bytes,
                                          p3_bytes)
-from repro_torch.data import make_batch  # noqa: E402
+from repro_torch.data import make_batch, token_batches  # noqa: E402
 from repro_torch.features import FeatureStore  # noqa: E402
 from repro_torch.graph import make_dataset  # noqa: E402
 from repro_torch.graph.partition import (community_partition,  # noqa: E402
@@ -187,17 +218,21 @@ from repro_torch.kernels import gather_agg as ga  # noqa: E402
 from repro_torch.kernels import linattn as la  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch.serve import LLMServer, generate  # noqa: E402
+from repro_torch.launch.train import (accumulated_grads,  # noqa: E402
+                                      make_train_step, pick_optimizer,
+                                      value_and_grad)
 from repro_torch.models.gnn import GNNConfig, gnn_forward, init_gnn  # noqa: E402
 from repro_torch.models.gnn.models import model_param_bytes  # noqa: E402
 from repro_torch.models.transformer import (decode_step,  # noqa: E402
-                                            init_params, prefill)
+                                            forward, init_params, prefill)
 from repro_torch.obs import trace  # noqa: E402
 from repro_torch.obs.export import (export_chrome_trace,  # noqa: E402
                                     run_manifest, trace_track_names,
                                     validate_chrome_trace)
 from repro_torch.checkpoint import (load_checkpoint,  # noqa: E402
                                     save_checkpoint)
-from repro_torch.optim import adamw, cosine_schedule  # noqa: E402
+from repro_torch.optim import (adamw, cosine_schedule,  # noqa: E402
+                               tree_leaves)
 from repro_torch.resilience import FaultPlan, FaultSpec  # noqa: E402
 from repro_torch.serve import (GNNServer, load_embeddings,  # noqa: E402
                                precompute_embeddings)
@@ -208,6 +243,7 @@ from repro_torch.train.pipeline import run_pipelined_epoch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_FLOP_PER_S = 67e12             # H100 SXM float32 outside tensor cores
 TF32_FLOP_PER_S = 495e12           # H100 SXM TF32 tensor cores, dense
+BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor cores, dense
 SRC = "src/repro_torch/kernels/csrc/gather_agg.cu"
 LA_SRC = "src/repro_torch/kernels/csrc/linattn.cu"
 LA_TOL = 5e-4      # tests/test_kernels.py: chunked kernel vs plain, f32
@@ -242,6 +278,28 @@ MESH_MODES = (("pregather", True, None), ("per-step", False, False),
 MESH_TOL = 1e-5
 MESH_FIT_RTOL = 1e-5   # fit losses, sharded vs emulated (summation order)
 MESH_TIMEOUT_S = 600   # a collective that waits longer fails the run
+# [lm-wide]: CUDA vs CPU logits and grads, and decode vs the full forward,
+# each within this share of the largest |value| (summation order only)
+LM_TOL = 1e-4
+# loss_fn's grads CUDA vs CPU, per leaf: RWKV6's sums run through the
+# chunked decays, and at full width one leaf's error reached 1.64e-4 of
+# its max |g| on an H100 80GB HBM3 at 700 W (PERF.md §6)
+GRAD_TOL = {"dense": LM_TOL, "ssm": 5e-4}
+DANUBE_PROMPT = 4608   # past h2o-danube-3-4b's 4096-token window: a ring
+# [lm-train]: accum 2 vs accum 1. The loss within ACCUM_TOL (relative) and
+# the accumulated grads within ACCUM_GRAD_TOL of each leaf's max |g|
+# (measured 9.6e-6 on an H100 80GB HBM3 at 700 W, PERF.md §6). The
+# parameters after the AdamW step within ACCUM_TOL of each leaf's max
+# |value| at the
+# elements whose clipped |g| is at least ACCUM_MIN_G, 100x AdamW's eps:
+# the first step moves an element by lr*g/(|g| + 1e-8), so below that the
+# float32 differences of g become moves of a sizable share of lr
+# (measured 4.9e-3 of a leaf's max over all elements)
+ACCUM_TOL = 1e-5
+ACCUM_GRAD_TOL = 5e-5
+ACCUM_MIN_G = 1e-6
+RWKV_TRAIN_LAYERS = 8  # of 32: params, grads and f32 moments of all 32
+#                        would take about 90 GB
 
 
 def log(phase: str, msg: str) -> None:
@@ -2104,16 +2162,17 @@ def phase_rwkv6_wide(seed: int) -> None:
 # Phase 7: LLM serving, rwkv6-7b at full width and depth, bfloat16
 # ---------------------------------------------------------------------------
 
-def phase_llm(seed: int) -> int:
-    cfg = get_config("rwkv6-7b")
+def phase_llm(seed: int, arch: str = "rwkv6-7b", tag: str = "llm") -> int:
+    """LLMServer at the published size of ``arch``. An RWKV6 model must
+    launch linattn at least once per layer per batch; a dense one runs no
+    TPU kernel, so it must launch none."""
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
                          "cuda")
     torch.cuda.synchronize()
-    sizes = []
-    _tree_map(lambda t: sizes.append(t.numel()), params)
-    n_par = sum(sizes)
-    log("llm", f"{cfg.name}: {cfg.num_layers} layers, d_model "
+    n_par = n_params(params)
+    log(tag, f"{cfg.name}: {cfg.num_layers} layers, d_model "
                f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
                f"{n_par} parameters in {cfg.dtype} drawn on the card in "
                f"{time.perf_counter() - t0:.2f} s; "
@@ -2155,13 +2214,14 @@ def phase_llm(seed: int) -> int:
             raise AssertionError(f"malformed result {r!r}")
     if st["errors"] != 0:
         raise AssertionError(f"{st['errors']} serving errors")
-    if batches == 0 or launches < cfg.num_layers * batches:
+    if batches == 0 or (launches < cfg.num_layers * batches
+                        if cfg.family == "ssm" else launches != 0):
         raise AssertionError(f"linattn launched {launches} times for "
-                             f"{batches} batches")
+                             f"{batches} {cfg.family} batches")
     if ga.launches != {"gather_rows": 0, "gather_agg": 0}:
         raise AssertionError(f"the LLM path launched {ga.launches}")
     lat = np.array([1e3 * t.latency_s() for t in tickets])
-    log("llm", f"64 prompts (lengths {int(lengths.min())}..."
+    log(tag, f"64 prompts (lengths {int(lengths.min())}..."
                f"{int(lengths.max())}, {int(lengths.sum())} tokens) submitted "
                f"at once: {batches} batches, buckets {buckets}, "
                f"{64 * GEN_TOKENS} tokens generated in {wall:.3f} s = "
@@ -2171,7 +2231,8 @@ def phase_llm(seed: int) -> int:
                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
                f"linattn launches {launches} ({launches // batches} per "
                f"batch); errors {st['errors']}")
-    llm_timings(params, cfg, sorted({s for (_, s) in st["buckets"]}), seed)
+    llm_timings(params, cfg, sorted({s for (_, s) in st["buckets"]}), seed,
+                tag)
     del params, srv
     torch.cuda.empty_cache()
     return launches
@@ -2186,7 +2247,8 @@ def _tree_map(fn, node):
     return fn(node)
 
 
-def llm_timings(params, cfg, seq_buckets: list, seed: int) -> None:
+def llm_timings(params, cfg, seq_buckets: list, seed: int,
+                tag: str = "llm") -> None:
     """Prefill time per sequence bucket at batch 8 and decode time per
     step (CUDA events, after a warm call), then one generate at the largest
     bucket under torch.profiler: device busy share and time by kernel."""
@@ -2202,7 +2264,7 @@ def llm_timings(params, cfg, seq_buckets: list, seed: int) -> None:
             ev[1].record()
             torch.cuda.synchronize()
             ms = ev[0].elapsed_time(ev[1])
-            log("llm", f"prefill {LLM_BATCH}x{sp}: {ms:.2f} ms "
+            log(tag, f"prefill {LLM_BATCH}x{sp}: {ms:.2f} ms "
                        f"({LLM_BATCH * sp / ms * 1e3:.0f} prompt tokens/s)")
         tok = toks[:, 0]
         decode_step(params, cfg, tok, state)
@@ -2213,14 +2275,308 @@ def llm_timings(params, cfg, seq_buckets: list, seed: int) -> None:
         ev[1].record()
         torch.cuda.synchronize()
         ms = ev[0].elapsed_time(ev[1]) / steps
-        log("llm", f"decode_step at batch {LLM_BATCH}: {ms:.2f} ms per step "
+        log(tag, f"decode_step at batch {LLM_BATCH}: {ms:.2f} ms per step "
                    f"({LLM_BATCH / ms * 1e3:.0f} tokens/s)")
         batch = {"tokens": toks[:, :max(seq_buckets)]}
-        log("llm", f"profiled generate {LLM_BATCH}x{max(seq_buckets)} + "
+        log(tag, f"profiled generate {LLM_BATCH}x{max(seq_buckets)} + "
                    f"{GEN_TOKENS} tokens:")
         device_profile(lambda: generate(
             params, cfg, batch, GEN_TOKENS,
-            max_seq=max(seq_buckets) + GEN_TOKENS + 8), "llm", 1, "generate")
+            max_seq=max(seq_buckets) + GEN_TOKENS + 8), tag, 1, "generate")
+
+
+# ---------------------------------------------------------------------------
+# Phase lm-wide: dense and RWKV6 at full width, 2 layers, float32
+# ---------------------------------------------------------------------------
+
+def wide_model(arch: str, seed: int, layers: int = 2):
+    """``arch`` at its published width with depth cut to ``layers``, in
+    float32 so a comparison is of the algorithm, with random weights drawn
+    on the card. A fresh model's QKV biases and RWKV6 bonus u are 0, which
+    would hide them, so they are set to small random values."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, g, "cuda")
+    for layer in params["layers"]:
+        for t in ([layer["attn"][w]["b"] for w in ("wq", "wk", "wv")]
+                  if cfg.qkv_bias else []) + \
+                ([layer["blk"]["u"]] if cfg.family == "ssm" else []):
+            t.copy_(0.1 * torch.randn(t.shape, generator=g, device="cuda"))
+    return cfg, params
+
+
+def leaf_names(node, prefix: str = "") -> list:
+    """Paths of a parameter tree's tensors in tree_leaves order."""
+    if isinstance(node, dict):
+        return [n for k in sorted(node)
+                for n in leaf_names(node[k], f"{prefix}/{k}")]
+    if isinstance(node, list):
+        return [n for i, v in enumerate(node)
+                for n in leaf_names(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def share(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| as a share of max |want| (both moved to the CPU)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def check_decode(tag: str, cfg, params, toks: torch.Tensor, prompt: int,
+                 steps: int, fails: list) -> None:
+    """prefill(prompt tokens) + ``steps`` decode steps, each step's logits
+    against the full forward over every token at that position, on the
+    card."""
+    with torch.inference_mode():
+        full, _ = forward(params, cfg, {"tokens": toks})
+        last, state = prefill(params, cfg, {"tokens": toks[:, :prompt]},
+                              max_seq=prompt + steps + 8)
+        errs = [share(last, full[:, prompt - 1])]
+        for i in range(steps):
+            logits, state = decode_step(params, cfg,
+                                        toks[:, prompt + i].cuda(), state)
+            errs.append(share(logits, full[:, prompt + i]))
+    ring = state.caches[0].k.shape[1]
+    wrapped = ", a wrapped ring" if ring < prompt else ""
+    log(tag, f"{cfg.name} 2 layers f32: prefill({prompt}) + {steps} decode "
+             f"steps vs the full forward over {toks.shape[1]} tokens (KV "
+             f"cache of {ring} slots{wrapped}): max abs err {max(errs):.3e} of max |logit| per step "
+             f"{[f'{e:.2e}' for e in errs]} (bound {LM_TOL})")
+    if max(errs) > LM_TOL:
+        fails.append(f"{cfg.name} decode vs forward {max(errs)} > {LM_TOL}")
+
+
+def check_loss_grads(tag: str, arch: str, seed: int, fails: list) -> None:
+    """loss_fn's loss and every gradient leaf, CUDA against the CPU, on the
+    2-layer full-width model at batch 2 x 256 tokens; the training path
+    must launch no linattn kernel."""
+    cfg, params = wide_model(arch, seed)
+    batch = make_batch(cfg, 2, 256, seed=seed + 3)
+    la.reset_launches()
+    t0 = time.perf_counter()
+    loss_g, _, grads_g = value_and_grad(params, cfg, batch)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    launched = la.launches["linattn"]
+    cpu_params = _tree_map(lambda t: t.cpu(), params)
+    del params
+    t0 = time.perf_counter()
+    loss_c, _, grads_c = value_and_grad(cpu_params, cfg, batch)
+    t_cpu = time.perf_counter() - t0
+    errs = [share(a, b) for a, b in zip(grads_g, grads_c)]
+    worst = sorted(zip(errs, leaf_names(cpu_params)), reverse=True)[:3]
+    err_loss = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    bound = GRAD_TOL[cfg.family]
+    log(tag, f"{cfg.name} 2 layers f32, loss_fn at B=2 S=256: loss CUDA "
+             f"{float(loss_g):.6f} vs CPU {float(loss_c):.6f} (rel err "
+             f"{err_loss:.2e}, bound {LM_TOL}); {len(errs)} grad leaves, "
+             f"max abs err as a share of the leaf's max |g| (bound {bound}):"
+             f" worst {', '.join(f'{n} {e:.3e}' for e, n in worst)}; CUDA "
+             f"{t_gpu:.2f} s, CPU {t_cpu:.1f} s; linattn launches "
+             f"{launched} (want 0: training differentiates "
+             f"linattn_chunked_torch)")
+    if err_loss > LM_TOL or max(errs) > bound:
+        fails.append(f"{cfg.name} loss/grads CUDA vs CPU: loss {err_loss} > "
+                     f"{LM_TOL} or grads {max(errs)} > {bound}")
+    if launched:
+        fails.append(f"{cfg.name} loss_fn launched linattn {launched} times")
+
+
+def phase_lm_wide(seed: int) -> None:
+    fails: list = []
+    cfg, params = wide_model("qwen2-1.5b", seed)
+    toks = make_batch(cfg, 2, 264, seed=seed)["tokens"]
+    with torch.inference_mode():
+        gpu, _ = forward(params, cfg, {"tokens": toks[:, :256]})
+        cpu_params = _tree_map(lambda t: t.cpu(), params)
+        t0 = time.perf_counter()
+        cpu, _ = forward(cpu_params, cfg, {"tokens": toks[:, :256]})
+        t_cpu = time.perf_counter() - t0
+    err = share(gpu, cpu)
+    log("lm-wide", f"{cfg.name} 2 layers f32 (d_model {cfg.d_model}, "
+                   f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
+                   f"{cfg.vocab_size}), B=2 S=256 forward: CUDA vs CPU "
+                   f"({t_cpu:.1f} s) max abs err {err:.3e} of max |logit| "
+                   f"{float(cpu.abs().max()):.3f} (bound {LM_TOL})")
+    if err > LM_TOL:
+        fails.append(f"{cfg.name} forward CUDA vs CPU {err} > {LM_TOL}")
+    del gpu, cpu, cpu_params
+    check_decode("lm-wide", cfg, params, toks, 256, 8, fails)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg, params = wide_model("h2o-danube-3-4b", seed)
+    toks = make_batch(cfg, 1, DANUBE_PROMPT + 8, seed=seed)["tokens"]
+    check_decode("lm-wide", cfg, params, toks, DANUBE_PROMPT, 8, fails)
+    del params
+    torch.cuda.empty_cache()
+
+    for arch in ("qwen2-1.5b", "rwkv6-7b"):
+        check_loss_grads("lm-wide", arch, seed, fails)
+        torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError("; ".join(fails))
+
+
+# ---------------------------------------------------------------------------
+# Phase lm-train: make_train_step at full width
+# ---------------------------------------------------------------------------
+
+def n_params(params) -> int:
+    sizes = []
+    _tree_map(lambda t: sizes.append(t.numel()), params)
+    return sum(sizes)
+
+
+def train_run(cfg, seed: int, batch: int, seq: int, steps: int,
+              card: str) -> dict:
+    """``steps`` of make_train_step with pick_optimizer's AdamW on token
+    batches from token_batches; linattn counts zeroed just before and read
+    just after; then one more step under the profiler. Returns losses,
+    step seconds and launches."""
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                         "cuda")
+    opt = pick_optimizer(cfg)
+    opt_state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    n = n_params(params)
+    mdtype = str(opt_state.mu[0].dtype).removeprefix("torch.")
+    log("lm-train", f"{cfg.name}: {cfg.num_layers} layers, {n} parameters "
+                    f"in {cfg.dtype}, AdamW moments in {mdtype}: "
+                    f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                    f"allocated before activations (set up in "
+                    f"{time.perf_counter() - t0:.1f} s)")
+    batches = list(token_batches(cfg, batch, seq, steps=steps, seed=seed))
+    torch.cuda.reset_peak_memory_stats()
+    la.reset_launches()
+    ga.reset_launches()
+    losses, secs = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, b)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    out = dict(losses=losses, secs=secs, n=n, tokens=batch * seq,
+               linattn=la.launches["linattn"], gather=dict(ga.launches),
+               peak=torch.cuda.max_memory_allocated())
+    log_train(cfg, out, card)
+    log("lm-train", f"{cfg.name}: one more step under the profiler:")
+    device_profile(lambda: step(params, opt_state, batches[0]), "lm-train",
+                   1, "step")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def log_train(cfg, r: dict, card: str) -> None:
+    steady = float(np.mean(r["secs"][1:]))
+    tps = r["tokens"] / steady
+    log("lm-train", f"{cfg.name} losses {[f'{x:.4f}' for x in r['losses']]}")
+    log("lm-train", f"{cfg.name} {len(r['secs'])} steps at {r['tokens']} "
+                    f"tokens: first {1e3 * r['secs'][0]:.1f} ms, then "
+                    f"{1e3 * steady:.1f} ms/step = {tps:.0f} tokens/s; "
+                    f"6*N*tokens/s = {6 * r['n'] * tps / 1e12:.1f} TFLOP/s = "
+                    f"{100 * 6 * r['n'] * tps / BF16_FLOP_PER_S:.2f}% of the "
+                    f"bf16 dense peak; peak memory "
+                    f"{r['peak'] / 2**30:.2f} GiB; linattn launches "
+                    f"{r['linattn']}; on {card}")
+
+
+def check_grad_refusal(fails: list) -> None:
+    """The CUDA linattn kernel has no backward: a q that requires grad is
+    refused, and nothing is launched."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, w, u = linattn_inputs(g, 4, 64, 64, 64, False)
+    q.requires_grad_()
+    la.reset_launches()
+    try:
+        la.linattn_chunked(q, k, v, w, u, chunk=64)
+    except RuntimeError as e:
+        log("lm-train", f"CUDA linattn with a q that requires grad raised: "
+                        f"{str(e)[:80]}...; launches "
+                        f"{la.launches['linattn']}")
+        if la.launches["linattn"]:
+            fails.append("linattn counted a refused launch")
+    else:
+        fails.append("CUDA linattn accepted a q that requires grad")
+
+
+def check_accum(seed: int, fails: list) -> None:
+    """One accum-2 step against the accum-1 step from the same parameters
+    on the 2-layer full-width qwen2-1.5b in float32: the loss, the
+    accumulated gradients, and the parameters after the AdamW step where
+    the step is well-conditioned (see ACCUM_MIN_G)."""
+    res = []
+    for accum in (1, 2):
+        cfg, params = wide_model("qwen2-1.5b", seed)
+        batch = make_batch(cfg, 4, 256, seed=seed + 4)
+        _, _, grads = accumulated_grads(params, cfg, batch, accum)
+        opt = pick_optimizer(cfg, lr=1e-3)
+        params, _, m = make_train_step(cfg, opt, accum=accum)(
+            params, opt.init(params), batch)
+        res.append((tree_leaves(params), float(m["loss"]), grads))
+        names = leaf_names(params)
+        del params
+    (p1, l1, g1), (p2, l2, g2) = res
+    scale = min(1.0, 1.0 / (float(torch.sqrt(sum(
+        g.float().square().sum() for g in g1))) + 1e-9))   # the clip
+    err_l = abs(l2 - l1) / abs(l1)
+    err_g = sorted(((share(b, a), n) for a, b, n in zip(g1, g2, names)),
+                   reverse=True)
+    err_p, err_all, kept = [], 0.0, 0
+    for a, b, g, n in zip(p1, p2, g1, names):
+        d = (b - a).abs()
+        top = float(a.abs().max())
+        err_all = max(err_all, float(d.max()) / top)
+        ok = g.abs() * scale >= ACCUM_MIN_G
+        kept += int(ok.sum())
+        err_p.append((float(d[ok].max()) / top if ok.any() else 0.0, n))
+    err_p.sort(reverse=True)
+    total = sum(t.numel() for t in p1)
+    log("lm-train", f"qwen2-1.5b 2 layers f32, B=4 S=256: accum 2 vs accum "
+                    f"1, loss {l2:.7f} vs {l1:.7f} (rel err {err_l:.2e}, "
+                    f"bound {ACCUM_TOL}); accumulated grads, share of the "
+                    f"leaf's max (bound {ACCUM_GRAD_TOL}): worst "
+                    f"{', '.join(f'{n} {e:.3e}' for e, n in err_g[:3])}")
+    log("lm-train", f"parameters after the AdamW step, share of the leaf's "
+                    f"max: {err_all:.3e} over all {total} elements; "
+                    f"{err_p[0][0]:.3e} ({err_p[0][1]}; bound {ACCUM_TOL}) "
+                    f"over the {kept} whose clipped |g| >= {ACCUM_MIN_G}")
+    if err_l > ACCUM_TOL or err_g[0][0] > ACCUM_GRAD_TOL \
+            or err_p[0][0] > ACCUM_TOL:
+        fails.append(f"accum 2 vs 1: loss {err_l} > {ACCUM_TOL}, grads "
+                     f"{err_g[0]} > {ACCUM_GRAD_TOL} or params {err_p[0]} > "
+                     f"{ACCUM_TOL}")
+    del res, p1, p2, g1, g2
+    torch.cuda.empty_cache()
+
+
+def phase_lm_train(seed: int) -> int:
+    """Returns the linattn launches of the training runs (0 when right)."""
+    fails: list = []
+    card = card_line()
+    check_grad_refusal(fails)
+    check_accum(seed, fails)
+    runs = [(get_config("qwen2-1.5b"), 4, 1024, 6),
+            (dataclasses.replace(get_config("rwkv6-7b"),
+                                 num_layers=RWKV_TRAIN_LAYERS), 2, 1024, 4)]
+    launched = 0
+    for cfg, batch, seq, steps in runs:
+        r = train_run(cfg, seed, batch, seq, steps, card)
+        launched += r["linattn"]
+        if not np.isfinite(r["losses"]).all():
+            fails.append(f"{cfg.name}: non-finite loss {r['losses']}")
+        if r["linattn"] or any(r["gather"].values()):
+            fails.append(f"{cfg.name} training launched linattn "
+                         f"{r['linattn']} times, gathers {r['gather']}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return launched
+
 
 
 def main() -> int:
@@ -2231,6 +2587,10 @@ def main() -> int:
     ap.add_argument("--world", type=int, default=1,
                     help="ranks of the [mesh] phase, one per card; above 1 "
                          "only the build and [mesh] run")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="run only the build, the linattn kernel check and "
+                         "the transformer phases (6, 7, lm-wide, llm-dense, "
+                         "lm-train)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2254,28 +2614,42 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    ds, store, cfg, part = build_world(args.seed)
-    ws, hops = rung64_workspace(ds, store, cfg, args.seed + 1)
-    kernels = [check_gather_rows(ws, hops, args.seed),
-               check_gather_agg(ws, hops), check_linattn(args.seed)]
-    del ws, hops
-    by_path = {k["name"]: {} for k in kernels}
-    for name, n in phase_serve(ds, store, cfg, args.seed, args.requests,
-                               args.qps).items():
-        by_path[name]["gnn_serve"] = n
-    by_path["gather_rows"]["gnn_train"] = phase_train(ds, store, part, cfg,
+    if args.lm_only:
+        kernels = [check_linattn(args.seed)]
+        by_path = {"linattn": {}}
+    else:
+        ds, store, cfg, part = build_world(args.seed)
+        ws, hops = rung64_workspace(ds, store, cfg, args.seed + 1)
+        kernels = [check_gather_rows(ws, hops, args.seed),
+                   check_gather_agg(ws, hops), check_linattn(args.seed)]
+        del ws, hops
+        by_path = {k["name"]: {} for k in kernels}
+        for name, n in phase_serve(ds, store, cfg, args.seed, args.requests,
+                                   args.qps).items():
+            by_path[name]["gnn_serve"] = n
+        by_path["gather_rows"]["gnn_train"] = phase_train(ds, store, part,
+                                                          cfg, args.seed)
+        by_path["gather_rows"].update(phase_ckpt(ds, store, part, cfg,
+                                                 args.seed, args.requests,
+                                                 args.qps))
+        by_path["gather_rows"]["p3_train"] = phase_p3(ds, store, part, cfg,
                                                       args.seed)
-    by_path["gather_rows"].update(phase_ckpt(ds, store, part, cfg, args.seed,
-                                             args.requests, args.qps))
-    by_path["gather_rows"]["p3_train"] = phase_p3(ds, store, part, cfg,
-                                                  args.seed)
-    by_path["gather_rows"]["gnn_train_streamed"] = phase_stream(
-        ds, store, part, cfg, args.seed)
-    by_path["gather_rows"]["gnn_train_mesh"] = phase_mesh1(ds, cfg,
-                                                           args.seed)
-    del ds, store
+        by_path["gather_rows"]["gnn_train_streamed"] = phase_stream(
+            ds, store, part, cfg, args.seed)
+        by_path["gather_rows"]["gnn_train_mesh"] = phase_mesh1(ds, cfg,
+                                                               args.seed)
+        del ds, store
     phase_rwkv6_wide(args.seed)
     by_path["linattn"]["llm_serve"] = phase_llm(args.seed)
+    for tag, fn in (("lm-wide", lambda: phase_lm_wide(args.seed)),
+                    ("llm-dense", lambda: by_path["linattn"].update(
+                        llm_dense_serve=phase_llm(args.seed, "qwen2-1.5b",
+                                                  "llm-dense"))),
+                    ("lm-train", lambda: by_path["linattn"].update(
+                        lm_train=phase_lm_train(args.seed)))):
+        t0 = time.perf_counter()
+        fn()
+        log(tag, f"phase done in {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches"] = sum(by_path[k["name"]].values())
         k["launches_by_path"] = by_path[k["name"]]

@@ -7,8 +7,11 @@ the design does about that). The source is compiled with ``nvcc`` for
 :mod:`repro_torch.kernels._build`.
 
 The wrapper takes CUDA tensors only: it checks device, dtype (float32),
-rank, shapes, contiguity, ``T % chunk == 0`` and ``1 <= chunk <= 64``,
-raises on anything else, allocates the outputs with ``torch.empty``, and
+rank, shapes, contiguity, ``T % chunk == 0`` and ``1 <= chunk <= 64``, and
+that autograd wants no gradient through the call (the kernel has no
+backward, so an input that requires grad under grad mode is refused rather
+than answered with a result cut off from the graph), raises on anything
+else, allocates the outputs with ``torch.empty``, and
 launches on the current stream of the calling thread. The decay ``w`` is
 assumed to lie in (0.5, 1], the reference's domain; it is neither clamped
 nor checked. The wrapper adds one to ``launches["linattn"]`` where it
@@ -72,6 +75,13 @@ def smem_bytes() -> int:
 
 def _check(q, k, v, w, u, chunk: int) -> None:
     ts = {"q": q, "k": k, "v": v, "w": w, "u": u}
+    if torch.is_grad_enabled():
+        wanting = [name for name, t in ts.items() if t.requires_grad]
+        if wanting:
+            raise RuntimeError(
+                f"linattn: the CUDA kernel has no backward, and {wanting} "
+                f"require grad; call it under torch.no_grad(), or call "
+                f"ops.linattn, which differentiates linattn_chunked_torch")
     for name, t in ts.items():
         if t.dtype != torch.float32:
             raise TypeError(f"linattn: {name} must be float32, got {t.dtype}")

@@ -2,13 +2,14 @@
 
 A tensor on a CUDA device launches the hand-written kernel
 (:mod:`repro_torch.kernels.gather_agg`, :mod:`repro_torch.kernels.linattn`),
-which raises on anything it does not take — a gather from a table that
-requires grad included, since the gather kernels run forward only; a
+which raises on anything it does not take — an input that autograd would
+want a gradient through included, since the kernels run forward only; a
 tensor on the CPU takes the plain version (:mod:`ref`), which autograd
-differentiates. The one other branch is the reference's own: ``linattn``
-with a given incoming state runs the chunked plain version on either
-device, as the reference runs ``linattn_chunked_jnp`` there. There is no
-fallback from a kernel to its plain version.
+differentiates. ``linattn`` has the reference's two other branches: with a
+given incoming state, or when autograd needs a gradient through it, it runs
+:func:`linattn_chunked_torch` on either device, as the reference runs
+``linattn_chunked_jnp`` for both (its training path). There is no fallback
+from a kernel to its plain version.
 """
 from __future__ import annotations
 
@@ -19,13 +20,12 @@ from repro_torch.kernels import linattn as _la
 from repro_torch.kernels import ref as _ref
 
 
-def needs_backward(table: torch.Tensor) -> bool:
-    """Whether autograd would want a gradient through a gather of
-    ``table``. The gather kernels run forward only (the reference's Pallas
-    kernels have no VJP and it never differentiates the workspace), so on
-    CUDA this is refused rather than answered with a result cut off from
-    the graph."""
-    return table.requires_grad and torch.is_grad_enabled()
+def needs_backward(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would want a gradient through a call on
+    ``tensors``. The kernels run forward only (the reference's Pallas
+    kernels have no VJP), so on CUDA such a call is refused rather than
+    answered with a result cut off from the graph."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _forward_only(table: torch.Tensor, name: str) -> None:
@@ -53,13 +53,29 @@ def gather_agg(table: torch.Tensor, idx: torch.Tensor,
     return _ga.gather_agg(table, idx, reduce=reduce)
 
 
+def linattn_chunked_torch(q, k, v, w, u, state=None, chunk: int = 64):
+    """The differentiable chunked formulation in plain PyTorch, the port of
+    the reference's ``linattn_chunked_jnp``: the kernel's arithmetic in its
+    order, one chunk after another carrying the state, on any device.
+    Training runs it (autograd differentiates it); it is also the path of a
+    call with an incoming state. Shapes as :func:`ref.linattn_chunked_ref`,
+    whose body it is."""
+    return _ref.linattn_chunked_ref(q, k, v, w, u, state=state, chunk=chunk)
+
+
 def linattn(q, k, v, w, u, state=None, chunk: int = 64):
     """RWKV6 gated linear attention over a sequence. Returns (o, S_out).
-    From a zero state on CUDA this is the hand-written kernel; with an
-    incoming state, or on the CPU, the chunked plain version."""
-    if state is None and q.device.type == "cuda":
+
+    One rule, in this order: when autograd needs a gradient through the
+    call (grad mode on and any of q, k, v, w, u requires grad), or when an
+    incoming ``state`` is given, :func:`linattn_chunked_torch`; otherwise,
+    on CUDA the hand-written kernel (from a zero state), and on the CPU its
+    plain version."""
+    if state is not None or needs_backward(q, k, v, w, u):
+        return linattn_chunked_torch(q, k, v, w, u, state=state, chunk=chunk)
+    if q.device.type == "cuda":
         return _la.linattn_chunked(q, k, v, w, u, chunk=chunk)
-    return _ref.linattn_chunked_ref(q, k, v, w, u, state=state, chunk=chunk)
+    return _ref.linattn_chunked_ref(q, k, v, w, u, chunk=chunk)
 
 
 def linattn_step(q, k, v, w, u, state):

@@ -1,9 +1,9 @@
 """Batched LLM serving: prefill a batch of prompts, then decode.
 
 The port of the reference's ``launch/serve.py`` for the families the port
-runs (RWKV6 so far). Runs on ``cuda`` unless given ``device="cpu"``:
+runs (dense and RWKV6). Runs on ``cuda`` unless given ``device="cpu"``:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --smoke --batch 4 --prompt-len 32 --gen 16
 
 :class:`LLMServer` wraps :func:`generate` behind the port's

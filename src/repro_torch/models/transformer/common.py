@@ -1,4 +1,5 @@
-"""Shared transformer building blocks: inits, linear layers, RMSNorm.
+"""Shared transformer building blocks: inits, linear layers, RMSNorm,
+RoPE and the cross-entropy.
 
 Parameters are plain dicts of tensors, as the reference's are plain dict
 pytrees, so a reference tree converts leaf by leaf
@@ -6,10 +7,13 @@ pytrees, so a reference tree converts leaf by leaf
 layer keeps the reference's layout ``y = x @ w`` with ``w`` of shape
 ``(d_in, d_out)``, so weights carry across with no transpose. Random draws
 take an explicit ``torch.Generator`` on the device they are drawn on. The
-reference's sharding hints and RoPE have no counterpart here yet: the port
-runs on one card, and RWKV6 has no positional rotation.
+reference's sharding hints (``shard``, ``set_mesh_axes``, ``resolve_axes``)
+annotate GSPMD programs and have no counterpart on one card (ROADMAP.md,
+Queue 1 item 13).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -45,3 +49,41 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
     var = x32.square().mean(-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * p["g"]
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float) -> torch.Tensor:
+    """(head_dim / 2,) float32 inverse frequencies, computed on the CPU so
+    every device rotates by the same angles."""
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32)
+                            / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: broadcastable to (..., S). The halves
+    rotate in float32 and the result is cast back to x's dtype."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta).to(x.device)                 # (Dh/2,)
+    ang = positions[..., None].to(x.device, torch.float32) * freqs
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1f, x2f = x[..., : dh // 2].float(), x[..., dh // 2:].float()
+    return torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin],
+                     -1).to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token NLL; logits (B, S, V) upcast to float32, labels
+    (B, S) int."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        m = mask.float()
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return nll.mean()

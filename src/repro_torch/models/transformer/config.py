@@ -3,9 +3,9 @@
 The port's copy of the reference's ``ArchConfig``: one frozen dataclass
 for every family the reference spans (dense GQA, MoE, attention-free SSM
 (RWKV6), hybrid recurrent, encoder-decoder audio, VLM), so configs and
-parameter counts carry across unchanged. The port runs the ``ssm`` family
-so far (ROADMAP.md, Queue 1 item 9); ``src/repro_torch/configs/<id>.py``
-instantiates the published numbers.
+parameter counts carry across unchanged. The port runs the ``dense`` and
+``ssm`` families so far (ROADMAP.md, Queue 1 item 9);
+``src/repro_torch/configs/<id>.py`` instantiates the published numbers.
 """
 from __future__ import annotations
 

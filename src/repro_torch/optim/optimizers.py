@@ -4,7 +4,9 @@ Functional style, as the reference: ``opt = adamw(lr); state =
 opt.init(params); params, state = opt.update(grads, state, params)``.
 ``params`` is a module with a ``leaves()`` method giving its tensors in the
 reference's ``jax.tree.leaves`` order (:class:`repro_torch.models.gnn.GNN`
-has one) or a list of tensors in that order. ``grads`` is a list aligned
+has one), a list of tensors in that order, or a tree of dicts and lists of
+tensors (a transformer's parameters), whose leaves are taken with dict keys
+sorted, as ``jax.tree.leaves`` takes them. ``grads`` is a list aligned
 with those leaves, and the state's moments are lists in the same order —
 so the global norm sums the leaves in the reference's order.
 
@@ -43,9 +45,21 @@ class Optimizer:
 
 def leaves(params) -> list:
     """The tensors of ``params`` in the reference's leaf order."""
+    if isinstance(params, dict):
+        return tree_leaves(params)
     if isinstance(params, (list, tuple)):
         return list(params)
     return list(params.leaves())
+
+
+def tree_leaves(node) -> list:
+    """The tensors of a tree of dicts and lists: dict keys sorted, lists in
+    order."""
+    if isinstance(node, dict):
+        return [t for k in sorted(node) for t in tree_leaves(node[k])]
+    if isinstance(node, (list, tuple)):
+        return [t for v in node for t in tree_leaves(v)]
+    return [node]
 
 
 def _f32(x) -> torch.Tensor:
@@ -70,9 +84,33 @@ def clip_by_global_norm(grads, max_norm: float):
     ``|g|`` sums the squares leaf by leaf in the given order. Returns
     (clipped list, global norm) — both on the gradients' device."""
     grads = list(grads)
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
-    scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+    scale, gn = _clip_scale(grads, max_norm)
     return [(g * scale).to(g.dtype) for g in grads], gn
+
+
+def _clip_scale(grads: list, max_norm: float):
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    return torch.clamp(max_norm / (gn + 1e-9), max=1.0), gn
+
+
+# An update works through the leaves in groups of at most this many
+# elements, so its float32 temporaries stay a bounded size above the
+# parameters and moments (a multi-billion-parameter model would otherwise
+# need several float32 copies of itself at once). The arithmetic is
+# elementwise, so the grouping changes no value.
+_GROUP_ELEMS = 1 << 27
+
+
+def _groups(ps: list) -> list:
+    out, lo, n = [], 0, 0
+    for i, p in enumerate(ps):
+        if n and n + p.numel() > _GROUP_ELEMS:
+            out.append((lo, i))
+            lo, n = i, 0
+        n += p.numel()
+    if lo < len(ps):
+        out.append((lo, len(ps)))
+    return out
 
 
 class AdamState(NamedTuple):
@@ -113,34 +151,19 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.999,
     def update(grads, state, params):
         ps = leaves(params)
         gs = list(grads)
+        scale = None
         if grad_clip is not None:
-            gs, _ = clip_by_global_norm(gs, grad_clip)
+            scale, _ = _clip_scale(gs, grad_clip)
         step = state.step + 1
         t = _f32(step)
         c1 = float(1.0 - torch.pow(_f32(b1), t))
         c2 = float(1.0 - torch.pow(_f32(b2), t))
         lr_t = _lr_at(lr, step)
-        g32 = [g.float() for g in gs]
-        m32 = [m.float() for m in state.mu]   # the same tensors in float32
-        v32 = [v.float() for v in state.nu]
-        torch._foreach_mul_(m32, b1)
-        torch._foreach_add_(m32, torch._foreach_mul(g32, 1 - b1))
-        torch._foreach_mul_(v32, b2)
-        torch._foreach_add_(v32, torch._foreach_mul(
-            torch._foreach_mul(g32, g32), 1 - b2))
-        delta = torch._foreach_div(m32, c1)                 # mhat
-        den = torch._foreach_div(v32, c2)                   # vhat
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, eps)
-        torch._foreach_div_(delta, den)
-        p32 = [p.float() for p in ps]
-        torch._foreach_add_(delta, torch._foreach_mul(p32, weight_decay))
-        torch._foreach_mul_(delta, lr_t)
-        torch._foreach_sub_(p32, delta)
-        for dst, src in ((ps, p32), (state.mu, m32), (state.nu, v32)):
-            for a, b in zip(dst, src):
-                if a is not b:
-                    a.copy_(b)
+        for lo, hi in _groups(ps):
+            g32 = [(g if scale is None else (g * scale).to(g.dtype)).float()
+                   for g in gs[lo:hi]]
+            _adamw_group(ps[lo:hi], g32, state.mu[lo:hi], state.nu[lo:hi],
+                         b1, b2, c1, c2, eps, weight_decay, lr_t)
         return params, AdamState(step=step, mu=state.mu, nu=state.nu)
 
     dtype_name = str(state_dtype).removeprefix("torch.")
@@ -151,6 +174,31 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.999,
         key = ("adamw", *key, b1, b2, eps, weight_decay, grad_clip,
                dtype_name)
     return Optimizer(init=init, update=update, key=key)
+
+
+def _adamw_group(ps, g32, mu, nu, b1, b2, c1, c2, eps, weight_decay,
+                 lr_t) -> None:
+    """One group's AdamW step, written into ``ps``, ``mu`` and ``nu``."""
+    m32 = [m.float() for m in mu]   # the same tensors where they are float32
+    v32 = [v.float() for v in nu]
+    torch._foreach_mul_(m32, b1)
+    torch._foreach_add_(m32, torch._foreach_mul(g32, 1 - b1))
+    torch._foreach_mul_(v32, b2)
+    torch._foreach_add_(v32, torch._foreach_mul(
+        torch._foreach_mul(g32, g32), 1 - b2))
+    delta = torch._foreach_div(m32, c1)                 # mhat
+    den = torch._foreach_div(v32, c2)                   # vhat
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, eps)
+    torch._foreach_div_(delta, den)
+    p32 = [p.float() for p in ps]
+    torch._foreach_add_(delta, torch._foreach_mul(p32, weight_decay))
+    torch._foreach_mul_(delta, lr_t)
+    torch._foreach_sub_(p32, delta)
+    for dst, src in ((ps, p32), (mu, m32), (nu, v32)):
+        for a, b in zip(dst, src):
+            if a is not b:
+                a.copy_(b)
 
 
 def adam(lr=1e-3, **kw) -> Optimizer:

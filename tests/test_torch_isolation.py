@@ -83,7 +83,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                  "resilience.faults", "resilience.comm",
                  "resilience.supervisor", "membership.view",
                  "membership.detector", "membership.recovery",
-                 "serve.embeddings"):
+                 "serve.embeddings", "models.transformer.attention",
+                 "models.transformer.mlp", "launch.train", "configs.qwen2_1_5b",
+                 "configs.qwen2_5_3b", "configs.h2o_danube_3_4b",
+                 "configs.nemotron_4_340b"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -148,3 +151,12 @@ def test_trainer_without_gpu_raises():
                 part=np.array([0, 0, 1, 1]), owner=np.array([0, 0, 1, 1]),
                 local_idx=np.array([0, 1, 0, 1]),
                 table=np.zeros((2, 2, 4), np.float32), cfg=cfg)
+
+
+def test_train_entry_without_gpu_raises():
+    _no_gpu()
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.init_all(smoke_variant(get_config("qwen2-1.5b")))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "qwen2-1.5b", "--smoke", "--steps", "1"])
