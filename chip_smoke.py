@@ -10,13 +10,20 @@ the run with a non-zero exit and no result line):
 
   1. build    nvcc builds src/repro_torch/kernels/csrc/gather_agg.cu and
               csrc/linattn.cu for sm_90a into build/repro_torch_kernels/
-              (git-ignored), all at once, and prints each kernel's
-              registers, shared memory and spills.
+              (git-ignored), all at once, and prints one line per kernel
+              instance: registers, static shared memory, stack and spills.
+              A gather_agg instance that spills fails the run.
   2. kernels  gather_rows at every hop of a batch_pad=64 serve rung (the
               workspace and tree positions of a real micro-batch) and at an
               odd (33, 96) shape, bitwise against its plain version;
-              gather_agg (sum/mean/max, f=10, d=100, float32 and bfloat16)
-              within the tolerances of tests/test_kernels.py; linattn at the
+              gather_agg, each instance (fanout 10's and the generic one)
+              and word width against its plain version, sum and max
+              bitwise and mean within one ulp of the plain version's
+              value: f in 1, 3, 4, 10, 25, 40, d in 1, 96, 100, 130,
+              float32 and bfloat16, base pointers aligned, shifted by a
+              row and by one element, n 1 and 301, NaNs in the max rows;
+              then at the serve shape (the rung-64 workspace, hop 3's
+              positions as (6,400, 10) neighbour lists); linattn at the
               RWKV6 prefill's shapes (BH = 8·64, dk = dv = 64, T 256 and
               2048, chunk 64, the latter also with RWKV-like decays; T 24 at
               chunk 24 and chunk 1; T 126 at chunk 63), a ragged dv (48),
@@ -27,8 +34,12 @@ the run with a non-zero exit and no result line):
               with CUDA events) stands beside its plain version's, one
               PyTorch call that computes the same function where there is
               one (a yardstick the port never calls), its bound, and its
-              cost per call from the host. linattn's bound counts its
-              products in 3xTF32 at the TF32 tensor-core peak.
+              cost per call from the host; gather_agg's beside its first
+              design's (PERF.md). linattn's bound counts its products in
+              3xTF32 at the TF32 tensor-core peak. gather_agg runs on no
+              path, as in the JAX package: it is only gated and timed, here
+              and at the training and P3 shapes, outside every window that
+              counts launches.
   3. serve    GNNServer with GraphSAGE at the paper's settings (3 layers,
               hidden 128, fanout 10) on the synthetic products graph at
               full scale (245,000 vertices, 4-way community partition),
@@ -45,7 +56,9 @@ the run with a non-zero exit and no result line):
               merging, the async pipeline, resilience off, batch 256 per
               model = 1024 global, AdamW with a cosine schedule as
               examples/train_hopgnn.py): gather_rows at the four hops of
-              one (shard, step) of a real plan, bitwise and timed; one
+              one (shard, step) of a real plan, bitwise and timed, and
+              gather_agg on its workspace with hop 3's positions as
+              (12,800, 10), gated and timed as in phase 2; one
               iteration's loss and every grad leaf on CUDA against the
               port on the CPU (plain gather_rows) within 1e-4 of each
               leaf's largest value; then fit for 2 epochs of 8 iterations,
@@ -85,10 +98,12 @@ the run with a non-zero exit and no result line):
               largest value) and against model-centric on the card (rtol
               2e-3, atol 2e-5, tests/test_core.py), the losses within 1e-4,
               gather_rows bitwise at the P³ hop sizes, and (layers+1) x
-              shards launches. Prints time per iteration of P³ and hopgnn
-              (CUDA events, and device busy time under the profiler), and
-              the comm_model bytes of model_centric, naive_fc, hopgnn, p3
-              and lo with P3Plan.activation_bytes.
+              shards launches; gather_agg on the full table with shard 0's
+              hop 3 as (25,600, 10), gated and timed as in phase 2.
+              Prints time per iteration of P³ and hopgnn (CUDA events, and
+              device busy time under the profiler), and the comm_model
+              bytes of model_centric, naive_fc, hopgnn, p3 and lo with
+              P3Plan.activation_bytes.
   stream      streamed (out-of-core) training: the features spilled to
               per-shard .npy files under build/ with a host hot tier of a
               third of the table and checksums on; three runs of 3 epochs x
@@ -169,7 +184,8 @@ the run with a non-zero exit and no result line):
               share, time by kernel).
 
 Output: one line per measurement; then the kernels' JSON line (launches
-summed over the paths, per path under ``launches_by_path``; with --world
+summed over the paths, per path under ``launches_by_path``; gather_agg's
+timings at the P3 shape, every shape's under ``shapes``; with --world
 N, the mesh phase's summary instead), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
 
@@ -254,7 +270,16 @@ STATE_RTOL, STATE_ATOL = 1e-4, 1e-3
 DECODE_TOL = 5e-3  # prefill + decode vs prefill, tests/test_arch_smoke.py
 LLM_BATCH = 8
 GEN_TOKENS = 16
-AGG_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}   # test_kernels.py
+# gather_agg's first design (one warp per row, one element per lane): mean
+# at the serve shape (n 6,400, f 10, d 100, f32) on an NVIDIA H100 80GB HBM3
+# at 700 W (PERF.md section 6)
+AGG_FIRST_MS = 0.00933
+AGG_FANOUT = 10    # layer-0 child aggregation: hop 3's positions as (n, 10)
+# the extended gate: every instance (fanout 10's and the generic one) and
+# word width (16, 8, 4, 2 B) of the kernel
+AGG_CASE_FANOUTS = (1, 3, 4, 10, 25, 40)
+AGG_CASE_WIDTHS = (1, 96, 100, 130)
+AGG_CASE_ROWS = (1, 301)   # 301: a multiple of no block's row count
 CPU_TOL = 1e-4     # served (GPU, f32) vs CPU forward: summation order only
 CACHE_BYTES = 32 << 20
 MAX_BATCH = 64
@@ -376,6 +401,50 @@ def bound_ms(nbytes: int, flops: int = 0,
 # Phase 1: build
 # ---------------------------------------------------------------------------
 
+def ptxas_summary(msgs: str) -> list:
+    """Per kernel, from ``nvcc -Xptxas -v``: registers, static shared
+    memory, stack and spill bytes, names demangled with the toolkit's
+    cu++filt where it has one."""
+    import re
+    kernels, cur = [], None
+    for line in msgs.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = dict(name=m.group(1), registers=0, smem=0, stack=0,
+                       spill_stores=0, spill_loads=0)
+            kernels.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
+    for k in kernels:
+        k["spills"] = k["spill_stores"] + k["spill_loads"]
+    filt = shutil.which("cu++filt") or os.path.join(
+        os.path.dirname(shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"),
+        "cu++filt")
+    if kernels and os.path.exists(filt):
+        out = subprocess.run([filt], input="\n".join(k["name"]
+                                                     for k in kernels),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(kernels):
+            for k, name in zip(kernels, names):
+                name = re.sub(r"\((?:bool|int)\)|\(anonymous namespace\)::"
+                              r"|<unnamed>::", "", name)
+                k["name"] = name.split(">(")[0].removeprefix("void ") + ">" \
+                    if ">(" in name else name.split("(")[0]
+    return kernels
+
+
 def phase_build() -> None:
     """Both libraries at once: one nvcc per source, started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -383,14 +452,24 @@ def phase_build() -> None:
     with ThreadPoolExecutor(2) as pool:
         futs = [pool.submit(mod.build, True) for mod in (ga, la)]
         built = [f.result() for f in futs]
+    spilled = []
     for path, msgs in built:
-        log("build", f"{os.path.relpath(path, ROOT)} built")
-        for line in msgs.splitlines():
-            if "Used" in line or "spill" in line or "smem" in line:
-                log("build", line.strip())
+        kernels = ptxas_summary(msgs)
+        log("build", f"{os.path.relpath(path, ROOT)} built: {len(kernels)} "
+                     f"kernels, {sum(k['spills'] > 0 for k in kernels)} "
+                     f"with spills")
+        for k in kernels:
+            log("build", f"  {k['name']}: {k['registers']} registers, "
+                         f"{k['smem']} B static smem, {k['stack']} B stack, "
+                         f"spill stores {k['spill_stores']} B, loads "
+                         f"{k['spill_loads']} B")
+            if "gather_agg_kernel" in k["name"] and k["spills"]:
+                spilled.append(k["name"])
     log("build", f"both libraries in {time.perf_counter() - t0:.2f} s; "
                  f"linattn takes {la.smem_bytes()} B of dynamic shared "
                  f"memory per block")
+    if spilled:
+        raise AssertionError(f"gather_agg instances spill: {spilled}")
 
 
 # ---------------------------------------------------------------------------
@@ -446,47 +525,175 @@ def check_gather_rows(ws: torch.Tensor, hop_idx: list, seed: int) -> dict:
                 max_abs_err=0.0, bound_by="bytes", **tot)
 
 
-def check_gather_agg(ws: torch.Tensor, hop_idx: list) -> dict:
-    """Layer-0 child aggregation shapes: hop h+1's positions as (n, 10)
-    neighbour lists, n = 64·10^h."""
-    err = 0.0
-    nbrs = [hop_idx[h + 1].reshape(-1, 10) for h in range(len(hop_idx) - 1)]
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, NaNs and signed zeros included."""
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(as_int[a.dtype]), b.view(as_int[b.dtype]))
+
+
+def ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of x's dtype at each element of x (at 0, that just
+    below 1)."""
+    _, e = torch.frexp(x.float())
+    eps = torch.full_like(x, torch.finfo(x.dtype).eps, dtype=torch.float32)
+    return torch.ldexp(eps, e - 1)
+
+
+def agg_gate(table: torch.Tensor, nbr: torch.Tensor, reduce: str,
+             what: str) -> float:
+    """gather_agg against its plain version on the same inputs: sum and max
+    bit for bit (the same adds in the same order, no FMA, the same cast),
+    mean within one ulp of the plain version's value (which may divide by
+    the fanout as a multiply by its reciprocal where the kernel divides;
+    one ulp is inside tests/test_kernels.py's 1e-5 for float32 and 2e-2
+    for bfloat16). Returns the max abs err (0 where bitwise)."""
+    out = ga.gather_agg(table, nbr, reduce)
+    want = ref.gather_agg_ref(table, nbr, reduce)
+    if reduce != "mean":
+        if not same_bits(out, want):
+            raise AssertionError(f"gather_agg {reduce} {what}: not bitwise "
+                                 f"equal to its plain version")
+        return 0.0
+    if out.shape != want.shape or out.dtype != want.dtype:
+        raise AssertionError(f"gather_agg mean {what}: {out.dtype} "
+                             f"{tuple(out.shape)}, want {want.dtype} "
+                             f"{tuple(want.shape)}")
+    diff = (out.float() - want.float()).abs()
+    err = float(diff.max())
+    if not bool((diff <= ulp(want)).all()):
+        raise AssertionError(f"gather_agg mean {what}: max abs err {err}, "
+                             f"more than one ulp of the plain version's "
+                             f"value")
+    return err
+
+
+def check_gather_agg_cases(seed: int) -> float:
+    """Every instance and word width of gather_agg against its plain
+    version: fanout 10, which has an instance of its own, and the generic
+    one below, at and past a chunk of 8 and a warp of indices; widths whose
+    rows take words of 16, 8, 4 and 2 B in float32 and bfloat16; base
+    pointers shifted by a row (a contiguous table[1:]) and by one element;
+    one row and a row count no block divides; a NaN in the max rows.
+    Returns the largest mean error."""
+    g = torch.Generator().manual_seed(seed)
+    err, cases, shapes = 0.0, 0, set()
     for dtype in (torch.float32, torch.bfloat16):
-        table = ws.to(dtype)
-        for nbr in nbrs:
-            for reduce in ("sum", "mean", "max"):
-                out = ga.gather_agg(table, nbr, reduce).float()
-                want = ref.gather_agg_ref(table, nbr, reduce).float()
-                diff = float((out - want).abs().max())
-                tol = 0.0 if reduce == "max" else AGG_TOL[dtype]
-                if not torch.allclose(out, want, rtol=tol, atol=tol):
-                    raise AssertionError(
-                        f"gather_agg {reduce} {dtype} n={nbr.shape[0]}: max "
-                        f"abs err {diff} over tolerance {tol}")
-                err = max(err, diff)
-    log("kernels", f"gather_agg sum/mean/max, float32 and bfloat16, n in "
-                   f"{[x.shape[0] for x in nbrs]}, f=10, d={ws.shape[1]}: "
-                   f"within tolerance, max abs err {err}")
-    nbr = nbrs[-1]
+        for d in AGG_CASE_WIDTHS:
+            flat = torch.randn(51 * d + 1, generator=g).to("cuda", dtype)
+            with_nan = flat.clone()
+            with_nan[7 * d:9 * d + 1:3] = float("nan")  # rows 7-8 of each view
+            for shift, view in (
+                    ("aligned", lambda x: x[:50 * d].view(50, d)),
+                    ("table[1:]", lambda x: x[:51 * d].view(51, d)[1:]),
+                    ("shifted by one element",
+                     lambda x: x[1:].view(51, d))):
+                table, nan_table = view(flat), view(with_nan)
+                for f in AGG_CASE_FANOUTS:
+                    for n in AGG_CASE_ROWS:
+                        nbr = torch.randint(0, table.shape[0], (n, f),
+                                            generator=g,
+                                            dtype=torch.int32).to("cuda")
+                        nbr[0, f // 2] = 7      # a NaN row for max
+                        for reduce in ("sum", "mean", "max"):
+                            t = nan_table if reduce == "max" else table
+                            what = (f"{dtype} d={d} f={f} n={n} {shift}")
+                            err = max(err, agg_gate(t, nbr, reduce, what))
+                            cases += 1
+                        word, _ = ga.agg_shape(d * table.element_size(),
+                                               table.data_ptr(),
+                                               table.data_ptr())
+                        shapes.add((str(dtype)[6:], word))
+    log("kernels", f"gather_agg: {cases} cases (f in {AGG_CASE_FANOUTS}, d "
+                   f"in {AGG_CASE_WIDTHS}, float32 and bfloat16, base "
+                   f"aligned / table[1:] / shifted by one element, n in "
+                   f"{AGG_CASE_ROWS}, NaNs in the max rows): sum and max "
+                   f"bitwise, mean within one ulp, max abs err {err}; (dtype, "
+                   f"word bytes) reached: {sorted(shapes)}")
+    return err
+
+
+AGG_SHAPES: dict = {}   # shape name -> reduce -> timings (time_gather_agg)
+AGG_BY_PATH: dict = {}  # path -> gather_agg launches in its window
+
+
+def window_end(path: str) -> int:
+    """At the end of a path's counted window: gather_rows' launches in it,
+    and gather_agg's, which no path calls, kept for the kernels line."""
+    AGG_BY_PATH[path] = ga.launches["gather_agg"]
+    return ga.launches["gather_rows"]
+
+
+def time_gather_agg(phase: str, what: str, table: torch.Tensor,
+                    nbr: torch.Tensor) -> dict:
+    """gather_agg at one layer-0 child aggregation shape (hop 3's positions
+    as (n, 10) neighbour lists into a real table): gated against its plain
+    version, then per reduce its device time (CUDA-graph replays) beside
+    the plain version's, embedding_bag's (a yardstick the port never
+    calls), the bytes bound and its share, and the cost per call from the
+    host. Outside every window that counts launches."""
     nbr64 = nbr.long()
+    n, f = nbr.shape
+    nbytes = moved_bytes(table, nbr, n)
+    b, by = bound_ms(nbytes, nbr.numel() * table.shape[1])
+    row_bytes = table.shape[1] * table.element_size()
+    word, group = ga.agg_shape(row_bytes, table.data_ptr(), table.data_ptr())
+    counts = torch.unique(nbr, return_counts=True)[1]
+    read = nbr.numel() * row_bytes
+    log(phase, f"gather_agg {what}: {nbr.numel()} positions name "
+               f"{counts.numel()} distinct rows (the most repeated "
+               f"{int(counts.max())} times); the kernel reads {read} B of "
+               f"rows into the SMs, the bound counts each distinct row once")
     timed = {}
     for reduce in ("sum", "mean", "max"):
-        ms = device_ms(lambda: ga.gather_agg(ws, nbr, reduce))
-        pms = device_ms(lambda: ref.gather_agg_ref(ws, nbr, reduce))
+        err = agg_gate(table, nbr, reduce, what)
+        ms = device_ms(lambda: ga.gather_agg(table, nbr, reduce))
+        pms = device_ms(lambda: ref.gather_agg_ref(table, nbr, reduce))
         lms = device_ms(lambda: torch.nn.functional.embedding_bag(
-            nbr64, ws, mode=reduce))
-        host = call_ms(lambda: ga.gather_agg(ws, nbr, reduce))
-        nbytes = moved_bytes(ws, nbr, nbr.shape[0])
-        b, by = bound_ms(nbytes, nbr.numel() * ws.shape[1])
-        log("kernels", f"gather_agg {reduce} f32 n={nbr.shape[0]} f=10: "
-                       f"device {ms:.5f} ms (plain {pms:.5f}, embedding_bag "
-                       f"{lms:.5f}); per call from the host {host:.5f} ms; "
-                       f"moves {nbytes} B, bound {b:.5f} ms ({by})")
-        timed[reduce] = dict(ms=ms, plain_ms=pms, library_ms=lms,
-                             bound_ms=b, bound_by=by)
+            nbr64, table, mode=reduce))
+        host = call_ms(lambda: ga.gather_agg(table, nbr, reduce))
+        log(phase, f"gather_agg {reduce} {what}: table {tuple(table.shape)} "
+                   f"f32, n={n} f={f} (word {word} B, {group} lanes per "
+                   f"row): "
+                   f"device {ms:.5f} ms (plain {pms:.5f}, embedding_bag "
+                   f"{lms:.5f}); per call from the host {host:.5f} ms; moves "
+                   f"{nbytes} B, bound {b:.5f} ms ({by}), {100 * b / ms:.1f}% "
+                   f"of it; rows read at {read / ms / 1e9:.2f} TB/s; "
+                   + (f"max abs err {err}" if reduce == "mean" else "bitwise"))
+        timed[reduce] = dict(n=n, ms=ms, plain_ms=pms, library_ms=lms,
+                             bound_ms=b, bound_by=by, host_ms=host,
+                             max_abs_err=err)
+    AGG_SHAPES[what] = timed
+    return timed
+
+
+def check_gather_agg(ws: torch.Tensor, hop_idx: list, seed: int) -> float:
+    """Every instance of the kernel against its plain version, then the
+    serve shape: the rung-64 workspace with hop 3's positions as (n, 10)
+    neighbour lists, n = 6,400. Returns the largest mean error."""
+    err = check_gather_agg_cases(seed)
+    nbr = hop_idx[-1].reshape(-1, AGG_FANOUT)
+    wb = ws.to(torch.bfloat16)
+    for reduce in ("sum", "mean", "max"):
+        err = max(err, agg_gate(wb, nbr, reduce, "serve bfloat16"))
+    log("kernels", f"gather_agg at the serve shape in bfloat16: sum and max "
+                   f"bitwise, mean within one ulp")
+    del wb
+    timed = time_gather_agg("kernels", "serve", ws, nbr)
+    log("kernels", f"gather_agg mean serve: device {timed['mean']['ms']:.5f}"
+                   f" ms against the first design's {AGG_FIRST_MS} ms (same "
+                   f"shape, NVIDIA H100 80GB HBM3, 700 W, PERF.md)")
+    return max(err, timed["mean"]["max_abs_err"])
+
+
+def gather_agg_entry(err: float) -> dict:
+    """gather_agg's kernels-line entry: the P3 shape's mean timings, every
+    shape's under ``shapes``."""
+    p3 = {k: v for k, v in AGG_SHAPES["P3"]["mean"].items()
+          if k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
     return dict(name="gather_agg", route="cuda", source=SRC,
                 replaces="src/repro/kernels/gather_agg.py:130",
-                max_abs_err=err, **timed["mean"])
+                max_abs_err=err, **p3, shapes=AGG_SHAPES)
 
 
 def linattn_inputs(g, bh: int, T: int, dk: int, dv: int, u_per_bh: bool,
@@ -794,23 +1001,24 @@ def profile_window(srv, vertices: np.ndarray) -> None:
 # Phase 5: LeapGNN training
 # ---------------------------------------------------------------------------
 
-def check_gather_rows_train(trainer, plan) -> None:
+def check_gathers_train(trainer, plan) -> None:
     """gather_rows at the four hops of (shard 0, step 0) of a real training
     plan, on shard 0's pre-gathered workspace ``[local | fetched]``:
-    bitwise against its plain version, and timed as phase 2 times it."""
+    bitwise against its plain version, and timed as phase 2 times it; then
+    gather_agg on the same workspace with hop 3's positions as (n, 10)."""
     dev = engine.tree_map(lambda x: engine.upload(x, trainer.device),
                           plan.device_args())
     d = trainer.table.shape[-1]
     recv = engine.EmulatedComm().exchange_global(trainer.table, dev["req"])
     ws = torch.cat([trainer.table[0], recv[0].reshape(-1, d)], 0)
-    tot = time_gather_rows("train", "training", ws,
-                           [hop[0, 0].contiguous()
-                            for hop in dev["hop_idx"]])
+    hops = [hop[0, 0].contiguous() for hop in dev["hop_idx"]]
+    tot = time_gather_rows("train", "training", ws, hops)
     log("train", f"gather_rows, 4 hops of one (shard, step): device "
                  f"{tot['ms']:.5f} ms (plain {tot['plain_ms']:.5f}, "
                  f"index_select {tot['library_ms']:.5f}, bound "
                  f"{tot['bound_ms']:.5f}); an iteration runs "
                  f"{plan.num_shards * plan.num_steps} such")
+    time_gather_agg("train", "training", ws, hops[-1].reshape(-1, AGG_FANOUT))
 
 
 def check_train_grads(trainer, plan, store, cfg) -> None:
@@ -879,7 +1087,7 @@ def phase_train(ds, store, part, cfg, seed: int) -> int:
                  f"{torch.backends.cudnn.allow_tf32}")
     plan = trainer.build_plan(0, 0, TRAIN_BATCH)
     trainer._drain_plan_stats()
-    check_gather_rows_train(trainer, plan)
+    check_gathers_train(trainer, plan)
     check_train_grads(trainer, plan, store, cfg)
     del plan
 
@@ -889,7 +1097,7 @@ def phase_train(ds, store, part, cfg, seed: int) -> int:
     stats = trainer.fit(TRAIN_EPOCHS, TRAIN_ITERS,
                         batch_per_model=TRAIN_BATCH)
     wall = time.perf_counter() - t0
-    launches = ga.launches["gather_rows"]
+    launches = window_end("gnn_train")
     want = sum((cfg.num_layers + 1) * SHARDS * st.num_steps * TRAIN_ITERS
                for st in stats)
     seen, retraces = set(), 0
@@ -1103,7 +1311,7 @@ def phase_ckpt(ds, store, part, cfg, seed: int, requests: int,
     with fp.active():
         sb = tb.fit(CKPT_EPOCHS, CKPT_ITERS, batch_per_model=TRAIN_BATCH)
     wall_b = time.perf_counter() - t0
-    launches["gnn_train_faulted"] = ga.launches["gather_rows"]
+    launches["gnn_train_faulted"] = window_end("gnn_train_faulted")
     log_fit("faulted", sb)
     kinds = sorted({k for k, *_ in fp.fired})
     log("ckpt", f"faulted run {wall_b:.2f} s; fired {fp.fired}; "
@@ -1194,7 +1402,7 @@ def phase_ckpt(ds, store, part, cfg, seed: int, requests: int,
     finally:
         trace.disable()
     wall = time.perf_counter() - t0
-    launches["gnn_precompute"] = ga.launches["gather_rows"]
+    launches["gnn_precompute"] = window_end("gnn_precompute")
     spans: dict = {}
     for r in trace.records():
         if r.kind == "X":
@@ -1246,7 +1454,7 @@ def phase_ckpt(ds, store, part, cfg, seed: int, requests: int,
     ga.reset_launches()
     fresh0, pre0 = srv.fresh_batches, srv.precomputed_hits
     tickets, results = open_loop(srv, vertices, qps)
-    launches["gnn_serve_auto"] = ga.launches["gather_rows"]
+    launches["gnn_serve_auto"] = window_end("gnn_serve_auto")
     st = srv.stats()
     fresh_batches = srv.fresh_batches - fresh0
     hits = srv.precomputed_hits - pre0
@@ -1315,20 +1523,22 @@ def phase_p3(ds, store, part, cfg, seed: int) -> int:
               f"feature table {tuple(feats.shape)} on the card; plan_p3 "
               f"{plan_ms:.1f} ms; the input layer runs over "
               f"{SHARDS} slices of the {cfg.feature_dim} feature dims")
-    # the kernel at the P³ hop sizes: shard 0's hops from the full table
-    tot = time_gather_rows("p3", "P3", feats, [
-        torch.from_numpy(h.astype(np.int32)).to(DEVICE)
-        for h in plan.blocks[0].hops])
+    # the kernels at the P³ hop sizes: shard 0's hops from the full table
+    hops = [torch.from_numpy(h.astype(np.int32)).to(DEVICE)
+            for h in plan.blocks[0].hops]
+    tot = time_gather_rows("p3", "P3", feats, hops)
     log("p3", f"gather_rows, {layers} hops of one shard: device "
               f"{tot['ms']:.5f} ms (plain {tot['plain_ms']:.5f}, "
               f"index_select {tot['library_ms']:.5f}, bound "
               f"{tot['bound_ms']:.5f}); an iteration runs {SHARDS} such")
+    time_gather_agg("p3", "P3", feats, hops[-1].reshape(-1, AGG_FANOUT))
+    del hops
 
     # the main path: counts are zeroed just before it and read just after
     ga.reset_launches()
     g3, l3 = run_p3_iteration(params, feats, plan, cfg)
     torch.cuda.synchronize()
-    launches = ga.launches["gather_rows"]
+    launches = window_end("p3_train")
     gm, lm = engine.run_iteration(params, table, mc, cfg)
     t0 = time.perf_counter()
     g3c, l3c = run_p3_iteration(copy.deepcopy(params).cpu(), ds.features,
@@ -1482,7 +1692,7 @@ def phase_stream(ds, store, part, cfg, seed: int) -> int:
     finally:
         trace.disable()
     wall = time.perf_counter() - t0
-    launches = ga.launches["gather_rows"]
+    launches = window_end("gnn_train_streamed")
     log_stream("streamed", ss)
     path = export_chrome_trace(os.path.join(base, "streamed_trace.json"),
                                manifest=run_manifest(seed=seed))
@@ -1908,7 +2118,7 @@ def phase_mesh1(ds, cfg, seed: int) -> int:
         t0 = time.perf_counter()
         sm = tm.fit(MESH_EPOCHS, MESH_ITERS, batch_per_model=TRAIN_BATCH)
         wall_m = time.perf_counter() - t0
-        launches = ga.launches["gather_rows"]
+        launches = window_end("gnn_train_mesh")
         mesh_fit_log("sharded", sm, MESH_ITERS)
         te = mesh_trainer(ds, store, part, cfg, seed)
         t0 = time.perf_counter()
@@ -1979,7 +2189,7 @@ def mesh_rank_main(rank: int, world: int, seed: int, base: str) -> None:
         t0 = time.perf_counter()
         ss = ts.fit(MESH4_EPOCHS, MESH_ITERS, batch_per_model=TRAIN_BATCH)
         wall = time.perf_counter() - t0
-        launches = ga.launches["gather_rows"]
+        launches = window_end("gnn_train_mesh")
         want = sum(layers * st.num_steps * MESH_ITERS for st in ss)
         if lead:
             mesh_fit_log("sharded", ss, MESH_ITERS)
@@ -2000,7 +2210,8 @@ def mesh_rank_main(rank: int, world: int, seed: int, base: str) -> None:
         every = [torch.empty_like(sums) for _ in range(world)]
         dist.all_gather(every, sums, group=engine.mesh_group(mesh))
         same_params = all(torch.equal(every[0], s) for s in every)
-        counts = engine.agree_max([rel, launches != want, launches], mesh)
+        counts = engine.agree_max([rel, launches != want, launches,
+                                   AGG_BY_PATH["gnn_train_mesh"]], mesh)
         if lead:
             log("mesh", f"Trainer(mesh) fit {MESH4_EPOCHS}x{MESH_ITERS} in "
                         f"{wall:.2f} s: losses vs the emulated Trainer's "
@@ -2010,7 +2221,8 @@ def mesh_rank_main(rank: int, world: int, seed: int, base: str) -> None:
                         f"{sums.numel()} checksums) {same_params}; "
                         f"gather_rows launches per rank {launches} (want "
                         f"{want} = (layers+1) x T x iterations; worst rank "
-                        f"{int(counts[2])})")
+                        f"{int(counts[2])}); gather_agg launches, worst "
+                        f"rank {int(counts[3])}")
         if counts[0] > MESH_FIT_RTOL:
             raise AssertionError(f"mesh fit losses vs emulated rel err "
                                  f"{counts[0]} > {MESH_FIT_RTOL}")
@@ -2019,6 +2231,9 @@ def mesh_rank_main(rank: int, world: int, seed: int, base: str) -> None:
         if counts[1]:
             raise AssertionError(f"gather_rows launched {launches} times "
                                  f"on a rank, want {want}")
+        if counts[3]:
+            raise AssertionError(f"the sharded fit launched gather_agg "
+                                 f"{int(counts[3])} times on a rank")
         cost = mesh_cost(mesh, world, ts, cfg, lead, emulated=te)
         del te
 
@@ -2066,6 +2281,7 @@ def mesh_rank_main(rank: int, world: int, seed: int, base: str) -> None:
                                  f"{not bad[0]}, kinds {kinds}")
         if lead:
             summary = dict(world=world, launches_per_rank=launches,
+                           gather_agg_launches=int(counts[3]),
                            fit_rel_err=counts[0], cost=cost,
                            steady_ms=[1e3 * st.steady_time_s / MESH_ITERS
                                       for st in ss],
@@ -2606,6 +2822,9 @@ def main() -> int:
     phase_build()
     if args.world > 1:
         summary = phase_mesh(args.world, args.seed)
+        if summary["gather_agg_launches"]:
+            raise AssertionError(f"the sharded fit launched gather_agg: "
+                                 f"{summary['gather_agg_launches']}")
         log("done", f"build and [mesh] at world size {args.world} passed in "
                     f"{time.perf_counter() - t_all:.1f} s")
         print(json.dumps({"mesh": summary}))
@@ -2620,10 +2839,11 @@ def main() -> int:
     else:
         ds, store, cfg, part = build_world(args.seed)
         ws, hops = rung64_workspace(ds, store, cfg, args.seed + 1)
-        kernels = [check_gather_rows(ws, hops, args.seed),
-                   check_gather_agg(ws, hops), check_linattn(args.seed)]
+        kernels = [check_gather_rows(ws, hops, args.seed)]
+        agg_err = check_gather_agg(ws, hops, args.seed)
+        kernels.append(check_linattn(args.seed))
         del ws, hops
-        by_path = {k["name"]: {} for k in kernels}
+        by_path = {"gather_rows": {}, "gather_agg": {}, "linattn": {}}
         for name, n in phase_serve(ds, store, cfg, args.seed, args.requests,
                                    args.qps).items():
             by_path[name]["gnn_serve"] = n
@@ -2638,6 +2858,11 @@ def main() -> int:
             ds, store, part, cfg, args.seed)
         by_path["gather_rows"]["gnn_train_mesh"] = phase_mesh1(ds, cfg,
                                                                args.seed)
+        by_path["gather_agg"].update(AGG_BY_PATH)
+        if any(by_path["gather_agg"].values()):
+            raise AssertionError(f"a path launched gather_agg: "
+                                 f"{by_path['gather_agg']}")
+        kernels.insert(1, gather_agg_entry(agg_err))
         del ds, store
     phase_rwkv6_wide(args.seed)
     by_path["linattn"]["llm_serve"] = phase_llm(args.seed)

@@ -68,7 +68,8 @@ def _library():
             vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             lib.repro_gather_rows.argtypes = [vp, vp, vp, ll, ll, i, vp]
             lib.repro_gather_rows.restype = i
-            lib.repro_gather_agg.argtypes = [vp, vp, vp, ll, i, ll, i, i, vp]
+            lib.repro_gather_agg.argtypes = [vp, vp, vp, ll, i, ll, i, i, i,
+                                             i, vp]
             lib.repro_gather_agg.restype = i
             lib.repro_error_string.argtypes = [i]
             lib.repro_error_string.restype = ctypes.c_char_p
@@ -108,6 +109,23 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def word_bytes(row_bytes: int, *ptrs: int) -> int:
+    """The widest word (16, 8, 4 or 2 bytes) that divides a row's bytes
+    and every base pointer: the width each lane loads and stores."""
+    return next(w for w in (16, 8, 4, 2)
+                if row_bytes % w == 0 and all(p % w == 0 for p in ptrs))
+
+
+def agg_shape(row_bytes: int, table_ptr: int,
+              out_ptr: int) -> tuple[int, int]:
+    """gather_agg's launch shape: (word bytes, lanes per row). A row of W
+    words gets the power of two >= W lanes, capped at 32 (a warp then
+    reduces 32 / lanes rows at once)."""
+    word = word_bytes(row_bytes, table_ptr, out_ptr)
+    group = min(32, 1 << (row_bytes // word - 1).bit_length())
+    return word, group
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -120,9 +138,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if n == 0 or d == 0:
         return out
     row_bytes = d * table.element_size()
-    word = next(w for w in (16, 8, 4, 2)
-                if row_bytes % w == 0 and table.data_ptr() % w == 0
-                and out.data_ptr() % w == 0)
+    word = word_bytes(row_bytes, table.data_ptr(), out.data_ptr())
     lib = _library()
     with torch.cuda.device(table.device):
         code = lib.repro_gather_rows(table.data_ptr(), idx.data_ptr(),
@@ -149,12 +165,14 @@ def gather_agg(table: torch.Tensor, idx: torch.Tensor,
     out = torch.empty((n, d), dtype=table.dtype, device=table.device)
     if n == 0 or d == 0:
         return out
+    row_bytes = d * table.element_size()
+    word, group = agg_shape(row_bytes, table.data_ptr(), out.data_ptr())
     lib = _library()
     with torch.cuda.device(table.device):
         code = lib.repro_gather_agg(table.data_ptr(), idx.data_ptr(),
-                                    out.data_ptr(), n, f, d,
-                                    _DTYPES[table.dtype], _REDUCES[reduce],
-                                    _stream(table.device))
+                                    out.data_ptr(), n, f, row_bytes, word,
+                                    group, _DTYPES[table.dtype],
+                                    _REDUCES[reduce], _stream(table.device))
     _raise_on(code, "gather_agg")
     _count("gather_agg")
     return out

@@ -50,7 +50,14 @@ def test_gather_rows_matches_pallas(rows, d, dtype):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("n,f,d", [(8, 4, 128), (17, 10, 128), (5, 3, 64),
                                    (17, 10, 1), (17, 10, 100),
-                                   (17, 10, 130)])
+                                   (17, 10, 130),
+                                   # chip_smoke.py's shapes for the CUDA
+                                   # kernel's instances: fanout 10 and the
+                                   # generic one (1, 3, 4, 25, 40); widths
+                                   # whose rows take 16-, 8-, 4- and 2-byte
+                                   # words
+                                   (1, 1, 100), (9, 3, 96), (5, 25, 130),
+                                   (3, 40, 1), (7, 4, 100), (1, 10, 96)])
 def test_gather_agg_matches_pallas(n, f, d, reduce, dtype):
     rng = np.random.default_rng(1)
     table = rng.standard_normal((40, d)).astype(np.float32)
@@ -64,6 +71,45 @@ def test_gather_agg_matches_pallas(n, f, d, reduce, dtype):
     else:
         tol = 2e-2 if dtype == "bfloat16" else 1e-5
         np.testing.assert_allclose(_np(out), _np(ref), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("n,f,d", [(9, 10, 100), (5, 3, 96), (3, 40, 1)])
+def test_gather_agg_max_propagates_nan_like_pallas(n, f, d, dtype):
+    """A NaN in a neighbour row is the max of that column, wherever it
+    falls among the f neighbours, as jnp.maximum has it."""
+    rng = np.random.default_rng(2)
+    table = rng.standard_normal((12, d)).astype(np.float32)
+    table[5, ::2] = np.nan
+    idx = rng.integers(0, 12, (n, f)).astype(np.int32)
+    idx[0, 0], idx[-1, f - 1] = 5, 5
+    jt, tt = _pair(table, dtype)
+    ref = jax_gather_agg(jt, jnp.asarray(idx), reduce="max", interpret=True)
+    out = ops.gather_agg(tt, torch.from_numpy(idx), reduce="max")
+    assert np.isnan(_np(out)).any()
+    np.testing.assert_array_equal(_np(out), _np(ref))
+
+
+@pytest.mark.parametrize("row_bytes,table_ptr,out_ptr,want", [
+    (400, 0, 512, (16, 32)),   # float32 d=100: one row a warp
+    (200, 0, 512, (8, 32)),    # bfloat16 d=100
+    (384, 0, 512, (16, 32)),   # float32 d=96
+    (192, 0, 512, (16, 16)),   # bfloat16 d=96: two rows a warp
+    (520, 0, 512, (8, 32)),    # float32 d=130: three passes
+    (260, 0, 512, (4, 32)),    # bfloat16 d=130
+    (4, 0, 512, (4, 1)),       # float32 d=1: 32 rows a warp
+    (2, 0, 512, (2, 1)),       # bfloat16 d=1
+    (400, 4, 512, (4, 32)),    # base shifted by one float32
+    (192, 2, 512, (2, 32)),    # base shifted by one bfloat16
+    (400, 0, 8, (8, 32)),      # an output that is 8-aligned
+    (384, 0, 4, (4, 32)),      # an output that is only 4-aligned: 96 words
+])
+def test_agg_shape_picks_word_and_lanes(row_bytes, table_ptr, out_ptr,
+                                        want):
+    """gather_agg's launch shape: the widest word dividing the row and
+    both pointers, and a power-of-two group of lanes >= the row's words
+    capped at 32."""
+    assert cuda_kernels.agg_shape(row_bytes, table_ptr, out_ptr) == want
 
 
 def test_cpu_dispatch_never_launches():
