@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-Drives the port's serving paths (GNN, RWKV6, dense), its GNN training
-path (resident, streamed from disk, over a device mesh, and the P³
-baseline) and its transformer training path end to end on the card, and
+Drives the port's serving paths (GNN; RWKV6, dense, MoE, the RG-LRU
+hybrid, the vlm and audio transformers), its GNN training path
+(resident, streamed from disk, over a device mesh, and the P³ baseline)
+and its transformer training path end to end on the card, and
 holds every kernel it builds against its plain PyTorch version. Imports
 nothing of JAX and nothing of the JAX package. Phases (any failure ends
 the run with a non-zero exit and no result line):
@@ -163,12 +164,42 @@ the run with a non-zero exit and no result line):
               window, so the KV ring wraps; loss_fn's loss and every grad
               leaf at B=2 S=256, CUDA against the CPU, for qwen2-1.5b and
               rwkv6-7b (2 layers), with no linattn launch (training
-              differentiates the plain chunked version). Each within 1e-4
-              of the largest |value|.
+              differentiates the plain chunked version). Then the other
+              families at their published widths, 2 layers
+              (recurrentgemma-9b 3, one period), f32, every bias and
+              RG-LRU's Λ random: logits CUDA vs CPU for deepseek-moe-16b
+              and qwen2-moe-a2.7b (4 x 128), recurrentgemma-9b, pixtral-12b
+              (64 patches before 192 tokens) and whisper-base (1,500
+              frames); prefill + 8 decode steps vs the forward for
+              qwen2-moe (capacity factor 8: a drop is a training
+              artifact), recurrentgemma past its 2,048 window (2,304
+              tokens), pixtral with its 66-patch prefix and whisper;
+              loss_fn's loss, aux and every grad leaf, CUDA vs CPU, for
+              deepseek-moe and recurrentgemma. Each within 1e-4 of the
+              largest |value|. MoE routing first: each token's top-k
+              experts and each row's kept slots, card vs CPU; a token
+              whose experts differ (a near-tie of the float32 router
+              summed in another order) must have a margin p_j - p_(j+1)
+              below 1e-5, its row leaves the comparison, and all rows but
+              one must agree.
   llm-dense   phase 7 with qwen2-1.5b at its published size (28 layers,
               bf16, random weights): the same 64 prompts and measurements;
               gates zero launches of every kernel (the dense path runs no
               TPU kernel).
+  llm-moe     phase 7 with deepseek-moe-16b at its published size (28
+              layers, 64 routed experts top-6 + 2 shared, bf16, 31.4 GiB):
+              32 prompts, the same measurements, each layer's MoEStats
+              (HopMoE mode, dispatch and weight bytes, dropped share) at
+              the largest prefill bucket and at decode; zero launches.
+  llm-hybrid  the same with recurrentgemma-9b (38 layers: 12 periods of
+              rec, rec, attn and two rec; MQA, head dim 256, bf16): 32
+              prompts of 128..3,072 tokens, past its 2,048-token local
+              window; zero launches.
+  llm-mm      generate() at the published size on pixtral-12b (2 x 1,024
+              patches of 1,024 before 3,072 tokens) and whisper-base (8 x
+              1,500 frames and a 64-token prompt), 16 tokens each: tokens in
+              the vocabulary, zero launches; time, tokens/s, prefill and
+              decode ms, peak memory.
   lm-train    the CUDA linattn refusing a q that requires grad; one accum-2
               step against the accum-1 step on the 2-layer full-width
               qwen2-1.5b in float32 (loss and accumulated grads within
@@ -177,14 +208,18 @@ the run with a non-zero exit and no result line):
               qwen2-1.5b at full size (bf16, f32 moments), 6 steps at
               batch 4 x 1,024, and rwkv6-7b at full width and 8 of its 32
               layers (all 32 with their grads and f32 moments would take
-              about 90 GB), 4 steps at 2 x 1,024. Gates finite losses and
-              zero linattn launches; prints ms/step, tokens/s, 6*N*tokens/s
-              against the bf16 dense peak and peak memory, with the card,
-              and one more step of each under torch.profiler (device busy
-              share, time by kernel).
+              about 90 GB), 4 steps at 2 x 1,024, and deepseek-moe-16b at
+              4 of its 28 layers (all 28 with f32 moments would take about
+              200 GB), 4 steps at 2 x 1,024. Gates finite losses, an aux
+              loss finite and > 0 on every MoE step, and zero kernel
+              launches; prints ms/step, tokens/s, 6*N*tokens/s (N_active
+              for MoE) against the bf16 dense peak and peak memory, with
+              the card, and one more step of each under torch.profiler
+              (device busy share, time by kernel).
 
 Output: one line per measurement; then the kernels' JSON line (launches
-summed over the paths, per path under ``launches_by_path``; gather_agg's
+summed over the paths, per path under ``launches_by_path``, the
+transformer phases' paths with 0 where no kernel runs; gather_agg's
 timings at the P3 shape, every shape's under ``shapes``; with --world
 N, the mesh phase's summary instead), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -192,7 +227,8 @@ and last ``{"ok": true, "device": {...}}``.
     python3 chip_smoke.py [--requests 4096] [--qps 1000] [--seed 0]
     python3 chip_smoke.py --world 4        # on four cards
     python3 chip_smoke.py --lm-only        # build, linattn, phases 6, 7,
-                                           # lm-wide, llm-dense, lm-train
+                                           # lm-wide, llm-dense, llm-moe,
+                                           # llm-hybrid, llm-mm, lm-train
 """
 from __future__ import annotations
 
@@ -200,6 +236,7 @@ import argparse
 import copy
 import dataclasses
 import datetime
+import gc
 import json
 import os
 import shutil
@@ -240,7 +277,10 @@ from repro_torch.launch.train import (accumulated_grads,  # noqa: E402
 from repro_torch.models.gnn import GNNConfig, gnn_forward, init_gnn  # noqa: E402
 from repro_torch.models.gnn.models import model_param_bytes  # noqa: E402
 from repro_torch.models.transformer import (decode_step,  # noqa: E402
-                                            forward, init_params, prefill)
+                                            forward, forward_hidden,
+                                            init_params, prefill)
+from repro_torch.models.transformer.moe import (_alpha_mode,  # noqa: E402
+                                                moe_capacity)
 from repro_torch.obs import trace  # noqa: E402
 from repro_torch.obs.export import (export_chrome_trace,  # noqa: E402
                                     run_manifest, trace_track_names,
@@ -309,8 +349,12 @@ LM_TOL = 1e-4
 # loss_fn's grads CUDA vs CPU, per leaf: RWKV6's sums run through the
 # chunked decays, and at full width one leaf's error reached 1.64e-4 of
 # its max |g| on an H100 80GB HBM3 at 700 W (PERF.md §6)
-GRAD_TOL = {"dense": LM_TOL, "ssm": 5e-4}
+GRAD_TOL = {"dense": LM_TOL, "ssm": 5e-4, "moe": LM_TOL, "hybrid": LM_TOL}
 DANUBE_PROMPT = 4608   # past h2o-danube-3-4b's 4096-token window: a ring
+HYBRID_PROMPT = 2304   # past recurrentgemma-9b's 2048-token local window
+# an expert choice that differs between the card and the CPU is a near-tie
+# of the float32 router's probabilities: its margin must be below this
+MOE_FLIP_MARGIN = 1e-5
 # [lm-train]: accum 2 vs accum 1. The loss within ACCUM_TOL (relative) and
 # the accumulated grads within ACCUM_GRAD_TOL of each leaf's max |g|
 # (measured 9.6e-6 on an H100 80GB HBM3 at 700 W, PERF.md §6). The
@@ -325,10 +369,23 @@ ACCUM_GRAD_TOL = 5e-5
 ACCUM_MIN_G = 1e-6
 RWKV_TRAIN_LAYERS = 8  # of 32: params, grads and f32 moments of all 32
 #                        would take about 90 GB
+MOE_TRAIN_LAYERS = 4   # of deepseek-moe-16b's 28 (about 2.8B parameters):
+#                        all 28 with f32 moments would take about 200 GB
+MM_VLM_BATCH = 2       # pixtral-12b prompts of 1,024 patches + 3,072 tokens
+NEW_LLM_PROMPTS = 32   # prompts served in [llm-moe] and [llm-hybrid]
+HYBRID_MAX_PROMPT = 3072   # [llm-hybrid]: prompts past the 2,048 window
 
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def free_card() -> None:
+    """Release the card's memory of what a phase dropped: a collection
+    first, since a server and its batching loop refer to each other, so
+    its parameters outlive ``del`` until the collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def card_line() -> str:
@@ -2371,17 +2428,20 @@ def phase_rwkv6_wide(seed: int) -> None:
             raise AssertionError(f"decode after prefill differs from the "
                                  f"longer prefill: {err_d} > {DECODE_TOL}")
     del params, cpu_params, st_gpu, st_cpu, state
-    torch.cuda.empty_cache()
+    free_card()
 
 
 # ---------------------------------------------------------------------------
 # Phase 7: LLM serving, rwkv6-7b at full width and depth, bfloat16
 # ---------------------------------------------------------------------------
 
-def phase_llm(seed: int, arch: str = "rwkv6-7b", tag: str = "llm") -> int:
-    """LLMServer at the published size of ``arch``. An RWKV6 model must
-    launch linattn at least once per layer per batch; a dense one runs no
-    TPU kernel, so it must launch none."""
+def phase_llm(seed: int, arch: str = "rwkv6-7b", tag: str = "llm",
+              prompts_n: int = 64, max_len: int = 2048) -> dict:
+    """LLMServer at the published size of ``arch``, ``prompts_n`` prompts
+    of 128..``max_len`` tokens. An RWKV6 model must launch linattn at least
+    once per layer per batch; the other families run no TPU kernel, so
+    they must launch none. Returns each kernel's launches in the served
+    stream."""
     cfg = get_config(arch)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
@@ -2396,8 +2456,8 @@ def phase_llm(seed: int, arch: str = "rwkv6-7b", tag: str = "llm") -> int:
     srv = LLMServer(params, cfg, gen_tokens=GEN_TOKENS, max_batch=LLM_BATCH,
                     device="cuda")
     rng = np.random.default_rng(seed)
-    toks = make_batch(cfg, 64, 2048, seed=seed)["tokens"].numpy()
-    lengths = rng.integers(128, 2049, 64)
+    toks = make_batch(cfg, prompts_n, max_len, seed=seed)["tokens"].numpy()
+    lengths = rng.integers(128, max_len + 1, prompts_n)
     prompts = [toks[i, :n] for i, n in enumerate(lengths)]
     # one request first, so the stream does not carry cuBLAS's start-up
     warm = srv.submit(prompts[0][:128])
@@ -2437,21 +2497,47 @@ def phase_llm(seed: int, arch: str = "rwkv6-7b", tag: str = "llm") -> int:
     if ga.launches != {"gather_rows": 0, "gather_agg": 0}:
         raise AssertionError(f"the LLM path launched {ga.launches}")
     lat = np.array([1e3 * t.latency_s() for t in tickets])
-    log(tag, f"64 prompts (lengths {int(lengths.min())}..."
+    n_gen = prompts_n * GEN_TOKENS
+    log(tag, f"{prompts_n} prompts (lengths {int(lengths.min())}..."
                f"{int(lengths.max())}, {int(lengths.sum())} tokens) submitted "
                f"at once: {batches} batches, buckets {buckets}, "
-               f"{64 * GEN_TOKENS} tokens generated in {wall:.3f} s = "
-               f"{64 * GEN_TOKENS / wall:.1f} tokens/s; latency p50 "
+               f"{n_gen} tokens generated in {wall:.3f} s = "
+               f"{n_gen / wall:.1f} tokens/s; latency p50 "
                f"{np.percentile(lat, 50):.1f} ms p99 "
                f"{np.percentile(lat, 99):.1f} ms; peak memory "
                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
                f"linattn launches {launches} ({launches // batches} per "
                f"batch); errors {st['errors']}")
-    llm_timings(params, cfg, sorted({s for (_, s) in st["buckets"]}), seed,
-                tag)
+    seq_buckets = sorted({s for (_, s) in st["buckets"]})
+    if cfg.moe_num_experts:
+        log_moe_stats(params, cfg, max(seq_buckets), seed, tag)
+    llm_timings(params, cfg, seq_buckets, seed, tag)
     del params, srv
-    torch.cuda.empty_cache()
-    return launches
+    free_card()
+    return {"linattn": launches, **ga.launches}
+
+
+def log_moe_stats(params, cfg, seq: int, seed: int, tag: str) -> None:
+    """Each MoE layer's MoEStats at a prefill of LLM_BATCH x ``seq`` (one
+    forward recording them) and at decode (batch LLM_BATCH, one token: the
+    α decision is host arithmetic on the shapes, the same in every
+    layer), and the share of routed choices each layer dropped."""
+    toks = make_batch(cfg, LLM_BATCH, seq, seed=seed + 2)["tokens"]
+    stats: list = []
+    with torch.inference_mode():
+        forward_hidden(params, cfg, {"tokens": toks}, moe_stats=stats)
+    modes = sorted({st.mode for st in stats})
+    bytes_ = sorted({(st.dispatch_bytes, st.weight_bytes) for st in stats})
+    drops = [100 * float((~st.routing.keep).float().mean()) for st in stats]
+    log(tag, f"MoEStats at prefill {LLM_BATCH}x{seq} (capacity "
+             f"{moe_capacity(seq, cfg.moe_top_k, cfg.moe_num_experts, cfg.moe_capacity_factor)}"
+             f" slots per expert per row): {len(stats)} layers, mode "
+             f"{modes}, (dispatch_bytes, weight_bytes) {bytes_}; choices "
+             f"dropped per layer {min(drops):.2f}..{max(drops):.2f}% "
+             f"(mean {np.mean(drops):.2f}%)")
+    mode, db, wb = _alpha_mode(cfg, LLM_BATCH, 1)
+    log(tag, f"MoEStats at decode {LLM_BATCH}x1 (capacity 1): every layer "
+             f"mode {mode!r}, dispatch_bytes {db}, weight_bytes {wb}")
 
 
 def _tree_map(fn, node):
@@ -2502,23 +2588,105 @@ def llm_timings(params, cfg, seq_buckets: list, seed: int,
 
 
 # ---------------------------------------------------------------------------
-# Phase lm-wide: dense and RWKV6 at full width, 2 layers, float32
+# Phase llm-mm: generate on the vlm and audio families at full size
 # ---------------------------------------------------------------------------
 
-def wide_model(arch: str, seed: int, layers: int = 2):
-    """``arch`` at its published width with depth cut to ``layers``, in
-    float32 so a comparison is of the algorithm, with random weights drawn
-    on the card. A fresh model's QKV biases and RWKV6 bonus u are 0, which
-    would hide them, so they are set to small random values."""
+def phase_llm_mm(seed: int) -> dict:
+    """generate() at the published size, in bf16 with random weights, on
+    pixtral-12b (make_batch's 1,024 patches of 1,024 before 3,072 text
+    tokens, batch MM_VLM_BATCH) and whisper-base (1,500 frames of 512
+    and a 64-token decoder prompt, batch LLM_BATCH): GEN_TOKENS tokens
+    each. Gates the tokens' shape and range and 0 launches of every kernel
+    (neither family runs a TPU kernel); prints time, tokens/s, prefill ms,
+    decode ms per step and peak memory. Returns each path's launches."""
+    out = {}
+    for path, arch, rows, seq in (("llm_vlm_generate", "pixtral-12b",
+                                   MM_VLM_BATCH, 4096),
+                                  ("llm_audio_generate", "whisper-base",
+                                   LLM_BATCH, 64)):
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+        torch.cuda.synchronize()
+        log("llm-mm", f"{cfg.name}: {cfg.num_layers} layers, d_model "
+                      f"{cfg.d_model}, vocab {cfg.vocab_size}, "
+                      f"{n_params(params)} parameters in {cfg.dtype} drawn "
+                      f"on the card in {time.perf_counter() - t0:.2f} s")
+        batch = {k: v.cuda() for k, v in
+                 make_batch(cfg, rows, seq, seed=seed).items()}
+        S = batch["tokens"].shape[1] + (batch["patches"].shape[1]
+                                        if "patches" in batch else 0)
+        max_seq = S + GEN_TOKENS + 8
+        generate(params, cfg, batch, 2, max_seq=max_seq)       # warm
+        la.reset_launches()
+        ga.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(params, cfg, batch, GEN_TOKENS, max_seq=max_seq)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"linattn": la.launches["linattn"], **ga.launches}
+        if toks.shape != (rows, GEN_TOKENS) or toks.dtype != torch.int32 \
+                or not ((0 <= toks) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"{cfg.name}: malformed tokens {toks!r}")
+        if any(launches.values()):
+            raise AssertionError(f"{cfg.name} generate launched {launches}")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        with torch.inference_mode():
+            ev[0].record()
+            logits, state = prefill(params, cfg, batch, max_seq=max_seq)
+            ev[1].record()
+            tok = logits[:, :cfg.vocab_size].argmax(-1)
+            for _ in range(8):
+                _, state = decode_step(params, cfg, tok, state)
+            ev[2].record()
+        torch.cuda.synchronize()
+        shapes = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+        log("llm-mm", f"{cfg.name} generate({shapes}) + {GEN_TOKENS} tokens: "
+                      f"{wall:.3f} s = {rows * GEN_TOKENS / wall:.1f} "
+                      f"tokens/s; prefill {ev[0].elapsed_time(ev[1]):.2f} "
+                      f"ms, decode_step {ev[1].elapsed_time(ev[2]) / 8:.2f} "
+                      f"ms at batch {rows}; peak memory "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB;"
+                      f" launches {launches}; errors 0; on {card_line()}")
+        out[path] = launches
+        del params, batch, state, logits
+        free_card()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase lm-wide: every family at full width, 2 or 3 layers, float32
+# ---------------------------------------------------------------------------
+
+def wide_model(arch: str, seed: int, layers: int = 2, **kw):
+    """``arch`` at its published width with depth cut to ``layers`` (and
+    ``kw`` replaced), in float32 so a comparison is of the algorithm, with
+    random weights drawn on the card. A fresh model's biases, RWKV6 bonus
+    u and norm shifts are 0 and RG-LRU's Λ is 2 in every channel, which
+    would hide them: the dense and RWKV6 models get small random QKV
+    biases and u, the other families random values in every bias (``b``,
+    ``conv_b``) and Λ in (1, 3)."""
     cfg = dataclasses.replace(get_config(arch), num_layers=layers,
-                              dtype="float32")
+                              dtype="float32", **kw)
     g = torch.Generator(device="cuda").manual_seed(seed)
     params = init_params(cfg, g, "cuda")
-    for layer in params["layers"]:
-        for t in ([layer["attn"][w]["b"] for w in ("wq", "wk", "wv")]
-                  if cfg.qkv_bias else []) + \
-                ([layer["blk"]["u"]] if cfg.family == "ssm" else []):
+    if cfg.family in ("dense", "ssm"):
+        for layer in params["layers"]:
+            for t in ([layer["attn"][w]["b"] for w in ("wq", "wk", "wv")]
+                      if cfg.qkv_bias else []) + \
+                    ([layer["blk"]["u"]] if cfg.family == "ssm" else []):
+                t.copy_(0.1 * torch.randn(t.shape, generator=g,
+                                          device="cuda"))
+        return cfg, params
+    for name, t in zip(leaf_names(params), tree_leaves(params)):
+        leaf = name.rsplit("/", 1)[-1]
+        if leaf in ("b", "conv_b"):
             t.copy_(0.1 * torch.randn(t.shape, generator=g, device="cuda"))
+        elif leaf == "lam":
+            t.copy_(1 + 2 * torch.rand(t.shape, generator=g, device="cuda"))
     return cfg, params
 
 
@@ -2539,53 +2707,138 @@ def share(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def check_decode(tag: str, cfg, params, toks: torch.Tensor, prompt: int,
+def kv_slots(state) -> int:
+    """Slots of the first self-attention KV cache of a decode state (a
+    dense layer's, a hybrid period's attention position's, an audio
+    decoder layer's)."""
+    c = state.caches[0]
+    if isinstance(c, dict):
+        c = next(b for b in c["blocks"] if hasattr(b, "k"))
+    return (c.self_kv if hasattr(c, "self_kv") else c).k.shape[1]
+
+
+def check_decode(tag: str, cfg, params, batch: dict, prompt: int,
                  steps: int, fails: list) -> None:
-    """prefill(prompt tokens) + ``steps`` decode steps, each step's logits
-    against the full forward over every token at that position, on the
-    card."""
+    """prefill(the first ``prompt`` tokens, and the batch's patches or
+    frames) + ``steps`` decode steps, each step's logits against the full
+    forward over every token at that position, on the card. A vlm's
+    patches take the first positions of the forward."""
+    toks = batch["tokens"]
+    pre = batch["patches"].shape[1] if "patches" in batch else 0
     with torch.inference_mode():
-        full, _ = forward(params, cfg, {"tokens": toks})
-        last, state = prefill(params, cfg, {"tokens": toks[:, :prompt]},
-                              max_seq=prompt + steps + 8)
-        errs = [share(last, full[:, prompt - 1])]
+        full, _ = forward(params, cfg, batch)
+        last, state = prefill(params, cfg, dict(batch,
+                                                tokens=toks[:, :prompt]),
+                              max_seq=pre + prompt + steps + 8)
+        errs = [share(last, full[:, pre + prompt - 1])]
         for i in range(steps):
             logits, state = decode_step(params, cfg,
                                         toks[:, prompt + i].cuda(), state)
-            errs.append(share(logits, full[:, prompt + i]))
-    ring = state.caches[0].k.shape[1]
-    wrapped = ", a wrapped ring" if ring < prompt else ""
-    log(tag, f"{cfg.name} 2 layers f32: prefill({prompt}) + {steps} decode "
-             f"steps vs the full forward over {toks.shape[1]} tokens (KV "
-             f"cache of {ring} slots{wrapped}): max abs err {max(errs):.3e} of max |logit| per step "
+            errs.append(share(logits, full[:, pre + prompt + i]))
+    ring = kv_slots(state)
+    wrapped = ", a wrapped ring" if ring < pre + prompt else ""
+    extra = "".join(f", {k} {tuple(v.shape)}" for k, v in batch.items()
+                    if k != "tokens")
+    log(tag, f"{cfg.name} {cfg.num_layers} layers f32: prefill({prompt}"
+             f"{extra}) + {steps} decode steps vs the full forward over "
+             f"{toks.shape[1]} tokens (KV cache of {ring} slots{wrapped}): "
+             f"max abs err {max(errs):.3e} of max |logit| per step "
              f"{[f'{e:.2e}' for e in errs]} (bound {LM_TOL})")
     if max(errs) > LM_TOL:
         fails.append(f"{cfg.name} decode vs forward {max(errs)} > {LM_TOL}")
 
 
-def check_loss_grads(tag: str, arch: str, seed: int, fails: list) -> None:
-    """loss_fn's loss and every gradient leaf, CUDA against the CPU, on the
-    2-layer full-width model at batch 2 x 256 tokens; the training path
-    must launch no linattn kernel."""
-    cfg, params = wide_model(arch, seed)
+def moe_rows_agreeing(tag: str, cfg, params, cpu_params, batch: dict,
+                      fails: list) -> tuple[list, list, tuple]:
+    """Every MoE layer's routing on the card against the CPU's on
+    ``batch``: the top-k experts of each token, then each row's kept flags
+    and slots. The router's float32 product sums in another order on the
+    card, so a near-tie between two experts may flip; a token whose
+    choices differ must have a margin p_j - p_(j+1) (CPU probabilities,
+    at the first rank that differs) below MOE_FLIP_MARGIN, and its row
+    leaves the comparison. Returns (the rows whose routing agrees in every
+    layer, the flips as (layer, row, token, margin), and the final hidden
+    states on the card and the CPU)."""
+    st_g, st_c = [], []
+    with torch.inference_mode():
+        xg, _ = forward_hidden(params, cfg, batch, moe_stats=st_g)
+        xc, _ = forward_hidden(cpu_params, cfg, batch, moe_stats=st_c)
+    B = batch["tokens"].shape[0]
+    agree = torch.ones(B, dtype=torch.bool)
+    flips = []
+    for layer, (g, c) in enumerate(zip(st_g, st_c)):
+        te_g, te_c = g.routing.top_e.cpu(), c.routing.top_e
+        differ = (te_g != te_c)                               # (B, S, k)
+        token_differs = differ.any(-1)
+        if token_differs.any():
+            sorted_p = c.routing.probs.sort(-1, descending=True).values
+            for b, t in token_differs.nonzero().tolist():
+                j = int(differ[b, t].nonzero()[0])
+                margin = float(sorted_p[b, t, j] - sorted_p[b, t, j + 1])
+                flips.append((layer, b, t, margin))
+                if margin >= MOE_FLIP_MARGIN:
+                    fails.append(f"{cfg.name} layer {layer} row {b} token "
+                                 f"{t}: experts {te_g[b, t].tolist()} on "
+                                 f"the card, {te_c[b, t].tolist()} on the "
+                                 f"CPU, margin {margin:.3e} >= "
+                                 f"{MOE_FLIP_MARGIN}")
+        row_differs = token_differs.any(-1)
+        slots_differ = ((g.routing.slot.cpu() != c.routing.slot)
+                        | (g.routing.keep.cpu() != c.routing.keep)).any(-1)
+        if (slots_differ & ~row_differs).any():
+            fails.append(f"{cfg.name} layer {layer}: kept slots differ in "
+                         f"rows whose experts agree")
+        agree &= ~(row_differs | slots_differ)
+    rows = agree.nonzero()[:, 0].tolist()
+    log(tag, f"{cfg.name} routing, card vs CPU, {len(st_g)} MoE layers x "
+             f"{B} rows x {batch['tokens'].shape[1]} tokens x top-"
+             f"{cfg.moe_top_k} of {cfg.moe_num_experts}: "
+             f"{len(flips)} tokens differ"
+             + (f" (layer, row, token, margin p_j - p_j+1: "
+                f"{[(l, b, t, f'{m:.2e}') for l, b, t, m in flips]}; bound "
+                f"{MOE_FLIP_MARGIN})" if flips else "")
+             + f"; kept slots equal in every row whose experts agree; rows "
+               f"agreeing in every layer {rows}")
+    if len(rows) < B - 1:
+        fails.append(f"{cfg.name}: routing agrees in rows {rows} of {B}")
+    return rows, flips, (xg, xc)
+
+
+def check_loss_grads(tag: str, arch: str, seed: int, fails: list,
+                     layers: int = 2) -> list:
+    """loss_fn's loss (MoE's balance loss included) and every gradient
+    leaf, CUDA against the CPU, on the full-width model cut to ``layers``
+    at batch 2 x 256 tokens; the training path must launch no linattn
+    kernel. For MoE the routing is compared first, and only the rows whose
+    routing agrees go on (returns its flips)."""
+    cfg, params = wide_model(arch, seed, layers)
     batch = make_batch(cfg, 2, 256, seed=seed + 3)
+    flips = []
+    if cfg.moe_num_experts:
+        rows, flips, _ = moe_rows_agreeing(
+            tag, cfg, params, _tree_map(lambda t: t.cpu(), params), batch,
+            fails)
+        batch = {k: v[rows] for k, v in batch.items()}
     la.reset_launches()
     t0 = time.perf_counter()
-    loss_g, _, grads_g = value_and_grad(params, cfg, batch)
+    loss_g, parts_g, grads_g = value_and_grad(params, cfg, batch)
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
     launched = la.launches["linattn"]
     cpu_params = _tree_map(lambda t: t.cpu(), params)
     del params
     t0 = time.perf_counter()
-    loss_c, _, grads_c = value_and_grad(cpu_params, cfg, batch)
+    loss_c, parts_c, grads_c = value_and_grad(cpu_params, cfg, batch)
     t_cpu = time.perf_counter() - t0
     errs = [share(a, b) for a, b in zip(grads_g, grads_c)]
     worst = sorted(zip(errs, leaf_names(cpu_params)), reverse=True)[:3]
     err_loss = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
     bound = GRAD_TOL[cfg.family]
-    log(tag, f"{cfg.name} 2 layers f32, loss_fn at B=2 S=256: loss CUDA "
-             f"{float(loss_g):.6f} vs CPU {float(loss_c):.6f} (rel err "
+    aux = (f" (aux CUDA {float(parts_g['aux']):.6f} vs CPU "
+           f"{float(parts_c['aux']):.6f})" if cfg.moe_num_experts else "")
+    log(tag, f"{cfg.name} {cfg.num_layers} layers f32, loss_fn at B="
+             f"{batch['tokens'].shape[0]} S=256: loss CUDA "
+             f"{float(loss_g):.6f} vs CPU {float(loss_c):.6f}{aux} (rel err "
              f"{err_loss:.2e}, bound {LM_TOL}); {len(errs)} grad leaves, "
              f"max abs err as a share of the leaf's max |g| (bound {bound}):"
              f" worst {', '.join(f'{n} {e:.3e}' for e, n in worst)}; CUDA "
@@ -2597,42 +2850,88 @@ def check_loss_grads(tag: str, arch: str, seed: int, fails: list) -> None:
                      f"{LM_TOL} or grads {max(errs)} > {bound}")
     if launched:
         fails.append(f"{cfg.name} loss_fn launched linattn {launched} times")
+    if cfg.moe_num_experts:
+        err_aux = abs(float(parts_g["aux"]) - float(parts_c["aux"])) \
+            / abs(float(parts_c["aux"]))
+        if not err_aux <= LM_TOL or not float(parts_g["aux"]) > 0:
+            fails.append(f"{cfg.name} aux CUDA vs CPU {err_aux} > {LM_TOL} "
+                         f"or not > 0")
+    return flips
 
 
-def phase_lm_wide(seed: int) -> None:
-    fails: list = []
-    cfg, params = wide_model("qwen2-1.5b", seed)
-    toks = make_batch(cfg, 2, 264, seed=seed)["tokens"]
-    with torch.inference_mode():
-        gpu, _ = forward(params, cfg, {"tokens": toks[:, :256]})
-        cpu_params = _tree_map(lambda t: t.cpu(), params)
-        t0 = time.perf_counter()
-        cpu, _ = forward(cpu_params, cfg, {"tokens": toks[:, :256]})
-        t_cpu = time.perf_counter() - t0
-    err = share(gpu, cpu)
-    log("lm-wide", f"{cfg.name} 2 layers f32 (d_model {cfg.d_model}, "
-                   f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
-                   f"{cfg.vocab_size}), B=2 S=256 forward: CUDA vs CPU "
-                   f"({t_cpu:.1f} s) max abs err {err:.3e} of max |logit| "
-                   f"{float(cpu.abs().max()):.3f} (bound {LM_TOL})")
+def check_logits(tag: str, arch: str, seed: int, fails: list,
+                 layers: int = 2, rows: int = 2, seq: int = 256) -> list:
+    """Forward logits on the card against the CPU on the full-width model
+    cut to ``layers``, at ``rows`` x ``seq`` of make_batch (with its
+    patches or frames); for MoE over the rows whose routing agrees.
+    Returns the routing flips."""
+    cfg, params = wide_model(arch, seed, layers)
+    batch = make_batch(cfg, rows, seq, seed=seed)
+    cpu_params = _tree_map(lambda t: t.cpu(), params)
+    t0 = time.perf_counter()
+    if cfg.moe_num_experts:
+        keep, flips, (xg, xc) = moe_rows_agreeing(tag, cfg, params,
+                                                  cpu_params, batch, fails)
+        gpu, cpu = xg @ params["head"], xc @ cpu_params["head"]
+    else:
+        keep, flips = list(range(rows)), []
+        with torch.inference_mode():
+            gpu, _ = forward(params, cfg, batch)
+            cpu, _ = forward(cpu_params, cfg, batch)
+    t_cpu = time.perf_counter() - t0
+    err = share(gpu[keep], cpu[keep])
+    extra = "".join(f", {k} {tuple(v.shape)}" for k, v in batch.items()
+                    if k != "tokens")
+    log(tag, f"{cfg.name} {cfg.num_layers} layers f32 (d_model "
+             f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+             f"vocab {cfg.vocab_size}), tokens {tuple(batch['tokens'].shape)}"
+             f"{extra}, forward: CUDA vs CPU ({t_cpu:.1f} s) over rows "
+             f"{keep}: max abs err {err:.3e} of max |logit| "
+             f"{float(cpu[keep].abs().max()):.3f} (bound {LM_TOL})")
     if err > LM_TOL:
         fails.append(f"{cfg.name} forward CUDA vs CPU {err} > {LM_TOL}")
-    del gpu, cpu, cpu_params
-    check_decode("lm-wide", cfg, params, toks, 256, 8, fails)
-    del params
-    torch.cuda.empty_cache()
+    del params, cpu_params, gpu, cpu
+    free_card()
+    return flips
 
-    cfg, params = wide_model("h2o-danube-3-4b", seed)
-    toks = make_batch(cfg, 1, DANUBE_PROMPT + 8, seed=seed)["tokens"]
-    check_decode("lm-wide", cfg, params, toks, DANUBE_PROMPT, 8, fails)
-    del params
-    torch.cuda.empty_cache()
 
-    for arch in ("qwen2-1.5b", "rwkv6-7b"):
-        check_loss_grads("lm-wide", arch, seed, fails)
-        torch.cuda.empty_cache()
+def phase_lm_wide(seed: int) -> list:
+    """Every family at its published width, cut to 2 layers (3 for the
+    hybrid: one period), in float32: logits, prefill + 8 decode steps and
+    loss_fn's grads, on the card against the CPU or the full forward.
+    Returns the MoE routing flips between the card and the CPU."""
+    fails: list = []
+    flips = []
+    for arch, layers, rows, seq in (("qwen2-1.5b", 2, 2, 256),
+                                    ("deepseek-moe-16b", 2, 4, 128),
+                                    ("qwen2-moe-a2.7b", 2, 4, 128),
+                                    ("recurrentgemma-9b", 3, 2, 256),
+                                    ("pixtral-12b", 2, 2, 256),
+                                    ("whisper-base", 2, 2, 256)):
+        flips += [(arch, *f) for f in check_logits("lm-wide", arch, seed,
+                                                    fails, layers, rows,
+                                                    seq)]
+    for arch, layers, rows, prompt, kw in (
+            ("qwen2-1.5b", 2, 2, 256, {}),
+            ("h2o-danube-3-4b", 2, 1, DANUBE_PROMPT, {}),
+            # a capacity drop is a training artifact (tests/test_arch_smoke.py)
+            ("qwen2-moe-a2.7b", 2, 2, 256, dict(moe_capacity_factor=8.0)),
+            ("recurrentgemma-9b", 3, 1, HYBRID_PROMPT, {}),
+            ("pixtral-12b", 2, 2, 190, {}),     # 66 patches + 198 tokens
+            ("whisper-base", 2, 2, 256, {})):
+        cfg, params = wide_model(arch, seed, layers, **kw)
+        batch = make_batch(cfg, rows, max(264, prompt + 8), seed=seed)
+        check_decode("lm-wide", cfg, params, batch, prompt, 8, fails)
+        del params
+        free_card()
+    for arch, layers in (("qwen2-1.5b", 2), ("rwkv6-7b", 2),
+                         ("deepseek-moe-16b", 2), ("recurrentgemma-9b", 3)):
+        flips += [(arch, *f) for f in check_loss_grads("lm-wide", arch, seed,
+                                                        fails, layers)]
+        free_card()
     if fails:
         raise AssertionError("; ".join(fails))
+    return flips
 
 
 # ---------------------------------------------------------------------------
@@ -2669,33 +2968,43 @@ def train_run(cfg, seed: int, batch: int, seq: int, steps: int,
     torch.cuda.reset_peak_memory_stats()
     la.reset_launches()
     ga.reset_launches()
-    losses, secs = [], []
+    losses, auxes, secs = [], [], []
     for b in batches:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, opt_state, m = step(params, opt_state, b)
         losses.append(float(m["loss"]))
+        auxes.append(float(m["aux"]))
         secs.append(time.perf_counter() - t0)
-    out = dict(losses=losses, secs=secs, n=n, tokens=batch * seq,
-               linattn=la.launches["linattn"], gather=dict(ga.launches),
+    # MoE: the routed experts a token does not pick are not active
+    inactive = cfg.num_layers * (cfg.moe_num_experts - cfg.moe_top_k) * 3 \
+        * cfg.d_model * cfg.moe_expert_d_ff
+    out = dict(losses=losses, auxes=auxes, secs=secs, n=n - inactive,
+               tokens=batch * seq, linattn=la.launches["linattn"],
+               gather=dict(ga.launches),
                peak=torch.cuda.max_memory_allocated())
     log_train(cfg, out, card)
     log("lm-train", f"{cfg.name}: one more step under the profiler:")
     device_profile(lambda: step(params, opt_state, batches[0]), "lm-train",
                    1, "step")
     del params, opt_state
-    torch.cuda.empty_cache()
+    free_card()
     return out
 
 
 def log_train(cfg, r: dict, card: str) -> None:
     steady = float(np.mean(r["secs"][1:]))
     tps = r["tokens"] / steady
-    log("lm-train", f"{cfg.name} losses {[f'{x:.4f}' for x in r['losses']]}")
+    aux = (f"; aux {[f'{x:.4f}' for x in r['auxes']]}"
+           if cfg.moe_num_experts else "")
+    n = "N_active" if cfg.moe_num_experts else "N"
+    log("lm-train", f"{cfg.name} losses {[f'{x:.4f}' for x in r['losses']]}"
+                    f"{aux}")
     log("lm-train", f"{cfg.name} {len(r['secs'])} steps at {r['tokens']} "
                     f"tokens: first {1e3 * r['secs'][0]:.1f} ms, then "
                     f"{1e3 * steady:.1f} ms/step = {tps:.0f} tokens/s; "
-                    f"6*N*tokens/s = {6 * r['n'] * tps / 1e12:.1f} TFLOP/s = "
+                    f"6*{n}*tokens/s ({n} {r['n']}) = "
+                    f"{6 * r['n'] * tps / 1e12:.1f} TFLOP/s = "
                     f"{100 * 6 * r['n'] * tps / BF16_FLOP_PER_S:.2f}% of the "
                     f"bf16 dense peak; peak memory "
                     f"{r['peak'] / 2**30:.2f} GiB; linattn launches "
@@ -2768,24 +3077,32 @@ def check_accum(seed: int, fails: list) -> None:
                      f"{err_g[0]} > {ACCUM_GRAD_TOL} or params {err_p[0]} > "
                      f"{ACCUM_TOL}")
     del res, p1, p2, g1, g2
-    torch.cuda.empty_cache()
+    free_card()
 
 
-def phase_lm_train(seed: int) -> int:
-    """Returns the linattn launches of the training runs (0 when right)."""
+def phase_lm_train(seed: int) -> dict:
+    """Returns each kernel's launches in the training runs (0 when
+    right)."""
     fails: list = []
     card = card_line()
     check_grad_refusal(fails)
     check_accum(seed, fails)
     runs = [(get_config("qwen2-1.5b"), 4, 1024, 6),
             (dataclasses.replace(get_config("rwkv6-7b"),
-                                 num_layers=RWKV_TRAIN_LAYERS), 2, 1024, 4)]
-    launched = 0
+                                 num_layers=RWKV_TRAIN_LAYERS), 2, 1024, 4),
+            (dataclasses.replace(get_config("deepseek-moe-16b"),
+                                 num_layers=MOE_TRAIN_LAYERS), 2, 1024, 4)]
+    launched = {"linattn": 0, "gather_rows": 0, "gather_agg": 0}
     for cfg, batch, seq, steps in runs:
         r = train_run(cfg, seed, batch, seq, steps, card)
-        launched += r["linattn"]
+        for k, v in dict(r["gather"], linattn=r["linattn"]).items():
+            launched[k] += v
         if not np.isfinite(r["losses"]).all():
             fails.append(f"{cfg.name}: non-finite loss {r['losses']}")
+        if cfg.moe_num_experts and not (np.isfinite(r["auxes"]).all()
+                                        and min(r["auxes"]) > 0):
+            fails.append(f"{cfg.name}: aux loss not finite and > 0 on every "
+                         f"step: {r['auxes']}")
         if r["linattn"] or any(r["gather"].values()):
             fails.append(f"{cfg.name} training launched linattn "
                          f"{r['linattn']} times, gathers {r['gather']}")
@@ -2806,7 +3123,7 @@ def main() -> int:
     ap.add_argument("--lm-only", action="store_true",
                     help="run only the build, the linattn kernel check and "
                          "the transformer phases (6, 7, lm-wide, llm-dense, "
-                         "lm-train)")
+                         "llm-moe, llm-hybrid, llm-mm, lm-train)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2864,17 +3181,32 @@ def main() -> int:
                                  f"{by_path['gather_agg']}")
         kernels.insert(1, gather_agg_entry(agg_err))
         del ds, store
+    def record(path: str, launches: dict) -> None:
+        for name, n in launches.items():
+            if name in by_path:
+                by_path[name][path] = n
+
     phase_rwkv6_wide(args.seed)
-    by_path["linattn"]["llm_serve"] = phase_llm(args.seed)
-    for tag, fn in (("lm-wide", lambda: phase_lm_wide(args.seed)),
-                    ("llm-dense", lambda: by_path["linattn"].update(
-                        llm_dense_serve=phase_llm(args.seed, "qwen2-1.5b",
-                                                  "llm-dense"))),
-                    ("lm-train", lambda: by_path["linattn"].update(
-                        lm_train=phase_lm_train(args.seed)))):
+    record("llm_serve", phase_llm(args.seed))
+    flips: list = []
+    for tag, fn in (
+            ("lm-wide", lambda: flips.extend(phase_lm_wide(args.seed))),
+            ("llm-dense", lambda: record("llm_dense_serve", phase_llm(
+                args.seed, "qwen2-1.5b", "llm-dense"))),
+            ("llm-moe", lambda: record("llm_moe_serve", phase_llm(
+                args.seed, "deepseek-moe-16b", "llm-moe", NEW_LLM_PROMPTS))),
+            ("llm-hybrid", lambda: record("llm_hybrid_serve", phase_llm(
+                args.seed, "recurrentgemma-9b", "llm-hybrid",
+                NEW_LLM_PROMPTS, HYBRID_MAX_PROMPT))),
+            ("llm-mm", lambda: [record(path, n) for path, n in
+                                phase_llm_mm(args.seed).items()]),
+            ("lm-train", lambda: record("lm_train",
+                                        phase_lm_train(args.seed)))):
         t0 = time.perf_counter()
         fn()
         log(tag, f"phase done in {time.perf_counter() - t0:.1f} s")
+    log("lm-wide", f"MoE routing flips between the card and the CPU: "
+                   f"{len(flips)} {flips}")
     for k in kernels:
         k["launches"] = sum(by_path[k["name"]].values())
         k["launches_by_path"] = by_path[k["name"]]

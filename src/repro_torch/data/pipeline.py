@@ -1,11 +1,12 @@
-"""Synthetic token batches, seeded and deterministic.
+"""Synthetic token and modality batches, seeded and deterministic.
 
 The port's copy of the reference's ``data/pipeline.py``: tokens follow a
-Zipfian unigram draw with a Markov bigram twist, drawn with numpy exactly as
-the reference draws them, so the same seed gives bitwise the same tokens in
-both packages. Batches are CPU tensors; the model moves them to its device.
-The modality stubs of the vlm and audio families arrive with those families
-(ROADMAP.md, Queue 1 item 9).
+Zipfian unigram draw with a Markov bigram twist, and the modality stubs
+(vlm patches, audio frames) are unit-Gaussian float32 embeddings of the
+configured width, all drawn with numpy exactly as the reference draws them
+(the stub first, then the tokens, from one generator), so the same seed
+gives bitwise the same batch in both packages. Batches are CPU tensors;
+the model moves them to its device.
 """
 from __future__ import annotations
 
@@ -31,14 +32,25 @@ def _zipf_markov_tokens(rng: np.random.Generator, batch: int, seq: int,
 
 
 def make_batch(cfg: ArchConfig, batch: int, seq: int, seed: int) -> dict:
-    """{"tokens": (batch, seq) int32 CPU tensor}."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.family} batches are not ported yet (ROADMAP.md, Queue 1 "
-            f"item 9)")
+    """{"tokens": (batch, seq) int32} CPU tensors, and for vlm
+    ``patches`` (batch, P, patch_dim) float32 with P = min(num_patches,
+    max(seq // 4, 1)) and seq - P text tokens, for audio ``frames``
+    (batch, encoder_seq, De) float32."""
     rng = np.random.default_rng(seed)
-    return {"tokens": torch.from_numpy(
-        _zipf_markov_tokens(rng, batch, seq, cfg.vocab_size))}
+    out: dict = {}
+    if cfg.family == "vlm":
+        P = min(cfg.num_patches, max(seq // 4, 1))
+        out["patches"] = torch.from_numpy(
+            rng.standard_normal((batch, P, cfg.patch_dim), dtype=np.float32))
+        seq -= P
+    elif cfg.family == "audio":
+        De = cfg.encoder_d_model or cfg.d_model
+        out["frames"] = torch.from_numpy(
+            rng.standard_normal((batch, cfg.encoder_seq, De),
+                                dtype=np.float32))
+    out["tokens"] = torch.from_numpy(
+        _zipf_markov_tokens(rng, batch, seq, cfg.vocab_size))
+    return out
 
 
 def token_batches(cfg: ArchConfig, batch: int, seq: int, steps: int,

@@ -1,7 +1,7 @@
 """Batched LLM serving: prefill a batch of prompts, then decode.
 
-The port of the reference's ``launch/serve.py`` for the families the port
-runs (dense and RWKV6). Runs on ``cuda`` unless given ``device="cpu"``:
+The port of the reference's ``launch/serve.py``, for every family. Runs on
+``cuda`` unless given ``device="cpu"``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --smoke --batch 4 --prompt-len 32 --gen 16
@@ -11,6 +11,9 @@ runs (dense and RWKV6). Runs on ``cuda`` unless given ``device="cpu"``:
 queue, one dynamic micro-batcher, one set of latency metrics
 (``llm.latency_ms`` etc.). Prompts are right-padded to pow2 (batch, seq)
 buckets, as in the reference, so steady traffic sees a handful of shapes.
+A request is a token prompt, so the server takes the token-only families
+(dense, moe, ssm, hybrid); :func:`generate` takes the vlm and audio
+batches too, with their ``patches`` or ``frames``.
 """
 from __future__ import annotations
 
@@ -30,8 +33,9 @@ from repro_torch.train.budget import next_bucket
 def generate(params, cfg: ArchConfig, batch: dict, gen_tokens: int,
              max_seq: int, greedy: bool = True, seed: int = 0
              ) -> torch.Tensor:
-    """Prefill + autoregressive decode. Returns (B, gen_tokens) int32 on
-    the parameters' device. Greedy takes the first maximal logit, as
+    """Prefill + autoregressive decode of ``batch`` (``make_batch``'s
+    keys for the family: tokens, and patches or frames). Returns
+    (B, gen_tokens) int32 on the parameters' device. Greedy takes the first maximal logit, as
     ``jnp.argmax`` does; sampling draws from the softmax with a
     ``torch.Generator`` seeded with ``seed``. The reference also runs a
     decode step after the last token and drops its logits; that step is
@@ -67,12 +71,20 @@ class LLMServer:
     is generated after its pad tokens, so its tokens depend on the bucket;
     the bit-parity serving contract lives on the GNN side. ``device``
     (default ``cuda``; raises without a GPU unless ``device="cpu"``) must
-    be where ``params`` lie."""
+    be where ``params`` lie. A vlm or audio config is refused: its
+    requests would need patches or frames beside the prompt, which the
+    reference's server does not build either (it would fail in
+    ``prefill``)."""
 
     def __init__(self, params, cfg: ArchConfig, *, gen_tokens: int = 16,
                  max_batch: int = 8, max_wait_s: float = 0.002,
                  min_seq_pad: int = 8, greedy: bool = True, seed: int = 0,
                  name: str = "llm", device=None):
+        if cfg.family in ("vlm", "audio"):
+            raise ValueError(
+                f"LLMServer serves token prompts; {cfg.name} ({cfg.family}) "
+                f"also needs {'patches' if cfg.family == 'vlm' else 'frames'}"
+                f" per request: call generate() with make_batch's batch")
         want = resolve_device(device)
         self.device = params["embed"].device
         if self.device.type != want.type \

@@ -1,7 +1,6 @@
-"""Transformer side workload of the port: the dense GQA family (sliding
-window, KV cache) and RWKV6 (``ssm``), served and trained. The reference's
-other families (MoE, RG-LRU hybrid, whisper-style audio, VLM) are still to
-port (ROADMAP.md, Queue 1 item 9).
+"""Transformer side workload of the port, served and trained: every
+family of the reference — dense GQA (sliding window, KV cache), MoE,
+RWKV6 (``ssm``), the RG-LRU hybrid, whisper-style audio and the VLM.
 """
 from repro_torch.models.transformer.config import ArchConfig
 from repro_torch.models.transformer.model import (

@@ -1,5 +1,5 @@
 """Shared transformer building blocks: inits, linear layers, RMSNorm,
-RoPE and the cross-entropy.
+LayerNorm, RoPE and the cross-entropy.
 
 Parameters are plain dicts of tensors, as the reference's are plain dict
 pytrees, so a reference tree converts leaf by leaf
@@ -49,6 +49,21 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
     var = x32.square().mean(-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * p["g"]
+
+
+def init_layernorm(d: int, dtype, device=None) -> dict:
+    return {"g": torch.ones((d,), dtype=dtype, device=device),
+            "b": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Mean and population variance (``jnp.var``'s, not the unbiased one)
+    in float32, cast back to x's dtype, then scaled and shifted."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * p["g"] + p["b"]
 
 
 # ---------------------------------------------------------------------------

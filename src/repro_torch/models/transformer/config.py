@@ -3,8 +3,7 @@
 The port's copy of the reference's ``ArchConfig``: one frozen dataclass
 for every family the reference spans (dense GQA, MoE, attention-free SSM
 (RWKV6), hybrid recurrent, encoder-decoder audio, VLM), so configs and
-parameter counts carry across unchanged. The port runs the ``dense`` and
-``ssm`` families so far (ROADMAP.md, Queue 1 item 9);
+parameter counts carry across unchanged; the port runs every family.
 ``src/repro_torch/configs/<id>.py`` instantiates the published numbers.
 """
 from __future__ import annotations

@@ -1,28 +1,36 @@
-"""Model assembly for the transformer side workload — the ``dense`` and
-``ssm`` families.
+"""Model assembly for the transformer side workload, every family.
 
-The port of the reference's ``models/transformer/model.py`` for dense GQA
-(with sliding window and KV cache) and RWKV6:
+The port of the reference's ``models/transformer/model.py``: dense GQA
+(with sliding window and KV cache), MoE (the dense layer with a routed
+expert layer in place of the MLP), RWKV6 (``ssm``), the RG-LRU hybrid
+(recurrent and local-attention positions in a repeating pattern), the VLM
+(a dense decoder behind a projected patch prefix) and whisper-style audio
+(an encoder-decoder):
 
   * ``init_params(cfg, generator, device)`` — seeded random parameters
   * ``forward(params, cfg, batch)``         — full logits (+ aux)
-  * ``loss_fn(params, cfg, batch)``         — next-token CE (+ aux)
+  * ``loss_fn(params, cfg, batch)``         — next-token CE (+ MoE aux)
   * ``prefill(params, cfg, batch, max_seq)`` — last-token logits + state
   * ``init_decode_state(cfg, batch, max_seq, device)`` — empty caches
   * ``decode_step(params, cfg, token, state)`` — one-token serve step
   * ``params_from_jax(tree, cfg, device)`` — the reference's tree, converted
 
-Parameters are plain dicts of tensors in the reference's tree layout, except
-that ``layers`` is a list of per-layer dicts (the reference stacks them on a
-leading axis for ``lax.scan``); layers run as a Python loop, each under
+Parameters are plain dicts of tensors in the reference's tree layout,
+except that what the reference stacks on a leading axis for ``lax.scan``
+is a list here: ``layers`` (dense, moe, vlm, ssm), ``enc_layers`` and
+``dec_layers`` (audio) are lists of per-layer dicts, and the hybrid's
+``groups`` is a list of ``{"blocks": [position, ...]}``, one per pattern
+period, beside its ``tail`` list of the positions left over. Layers (a
+hybrid's whole period) run as a Python loop, each under
 ``torch.utils.checkpoint`` when autograd records (the reference's
-``jax.checkpoint`` of the layer body: full remat per layer). The decode
-state's ``caches`` is likewise a list: a ``KVCache`` per dense layer, an
-``RWKVState`` per RWKV6 layer. The other families (moe, hybrid, audio,
-vlm) raise ``NotImplementedError`` until they are ported (ROADMAP.md,
-Queue 1 item 9). The reference's dry-run knobs (``set_remat_policy``,
-``set_scan_unroll``, ``set_sequence_sharding``) belong to its GSPMD
-programs and have no counterpart here (Queue 1 item 13).
+``jax.checkpoint`` of the scanned body: full remat). The decode state's
+``caches`` mirror them: a ``KVCache`` per dense, moe or vlm layer, an
+``RWKVState`` per RWKV6 layer, ``{"blocks": [...]}`` of ``RGLRUState`` and
+``KVCache`` per hybrid period (and ``tail``), a ``DecLayerCache`` per
+audio decoder layer (and ``enc``). The reference's dry-run knobs
+(``set_remat_policy``, ``set_scan_unroll``, ``set_sequence_sharding``)
+belong to its GSPMD programs and have no counterpart here (Queue 1 item
+13).
 """
 from __future__ import annotations
 
@@ -34,31 +42,32 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import encdec
 from repro_torch.models.transformer.attention import (
     KVCache, attn_decode, attn_forward, init_attn, init_kv_cache)
-from repro_torch.models.transformer.common import (apply_rope, init_rmsnorm,
-                                                   linear, rmsnorm)
+from repro_torch.models.transformer.common import (
+    apply_rope, init_linear, init_rmsnorm, layernorm, linear, rmsnorm)
 from repro_torch.models.transformer.config import ArchConfig
 from repro_torch.models.transformer.mlp import init_mlp, mlp_forward
+from repro_torch.models.transformer.moe import init_moe, moe_forward
+from repro_torch.models.transformer.rglru import (
+    init_rglru_block, init_rglru_state, rglru_block, rglru_block_decode)
 from repro_torch.models.transformer.rwkv6 import (
     RWKVState, init_rwkv_block, rwkv_block, rwkv_block_decode)
 
-# leaves the reference keeps in float32 whatever the model's dtype
-_F32_LEAVES = ("w_base", "u")
-PORTED_FAMILIES = ("dense", "ssm")
-
-
-def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES or cfg.moe_num_experts:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}"
-            f"{', with MoE layers' if cfg.moe_num_experts else ''}) is not "
-            f"ported yet (ROADMAP.md, Queue 1 item 9); the port runs "
-            f"{' and '.join(repr(f) for f in PORTED_FAMILIES)}")
+# leaves the reference keeps in float32 whatever the model's dtype, by name
+# (RWKV6's decay bias and bonus, RG-LRU's Λ) and by path (the MoE router,
+# whose leaf is named ``w`` like every linear's)
+_F32_LEAVES = ("w_base", "u", "lam")
+_F32_PATHS = (("moe", "router", "w"),)
+# the reference's leaves stacked on a leading axis for its scans
+_STACKED = ("layers", "enc_layers", "dec_layers", "groups")
 
 
 class DecodeState(NamedTuple):
-    caches: Any             # list of per-layer KVCache (dense) or RWKVState
+    caches: Any             # list of per-layer (hybrid: per-period) caches
+    tail: Any = None        # hybrid: the tail positions' caches
+    enc: Any = None         # audio: the encoder's output
 
 
 def _ckpt(fn, *args):
@@ -69,21 +78,45 @@ def _ckpt(fn, *args):
     return fn(*args)
 
 
+def _pattern(cfg: ArchConfig) -> tuple[tuple, int, int]:
+    """A hybrid's block pattern, its number of full periods, and the
+    number of positions left over (the tail)."""
+    pat = tuple(cfg.block_pattern)
+    n_groups = cfg.num_layers // len(pat)
+    return pat, n_groups, cfg.num_layers - n_groups * len(pat)
+
+
 # ===========================================================================
 # init
 # ===========================================================================
 
 def _init_dense_layer(g, cfg: ArchConfig, dtype, device) -> dict:
-    return {"ln1": init_rmsnorm(cfg.d_model, dtype, device),
-            "attn": init_attn(g, cfg, dtype, device=device),
-            "ln2": init_rmsnorm(cfg.d_model, dtype, device),
-            "mlp": init_mlp(g, cfg.d_model, cfg.d_ff, cfg.mlp, dtype, device)}
+    p = {"ln1": init_rmsnorm(cfg.d_model, dtype, device),
+         "attn": init_attn(g, cfg, dtype, device=device),
+         "ln2": init_rmsnorm(cfg.d_model, dtype, device)}
+    if cfg.moe_num_experts:
+        p["moe"] = init_moe(g, cfg, dtype, device)
+    else:
+        p["mlp"] = init_mlp(g, cfg.d_model, cfg.d_ff, cfg.mlp, dtype, device)
+    return p
 
 
 def _init_rwkv_layer(g, cfg: ArchConfig, dtype, device) -> dict:
     return {"ln1": init_rmsnorm(cfg.d_model, dtype, device),
             "ln2": init_rmsnorm(cfg.d_model, dtype, device),
             "blk": init_rwkv_block(g, cfg, dtype, device)}
+
+
+def _init_hybrid_position(g, cfg: ArchConfig, dtype, device,
+                          kind: str) -> dict:
+    p = {"ln1": init_rmsnorm(cfg.d_model, dtype, device)}
+    if kind == "rec":
+        p["blk"] = init_rglru_block(g, cfg, dtype, device)
+    else:
+        p["attn"] = init_attn(g, cfg, dtype, device=device)
+    p["ln2"] = init_rmsnorm(cfg.d_model, dtype, device)
+    p["mlp"] = init_mlp(g, cfg.d_model, cfg.d_ff, cfg.mlp, dtype, device)
+    return p
 
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
@@ -93,7 +126,6 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     live on that device (default: seed 0). The draws differ from the
     reference's ``jax.random`` ones; to hold the two packages against each
     other, convert the reference's tree with :func:`params_from_jax`."""
-    _require_ported(cfg)
     device = resolve_device(device)
     g = generator if generator is not None \
         else torch.Generator(device=device).manual_seed(0)
@@ -108,53 +140,125 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                          "norm_f": init_rmsnorm(D, dtype, device)}
     if not cfg.tie_embeddings:
         p["head"] = normal((D, V))
-    init_layer = _init_dense_layer if cfg.family == "dense" \
-        else _init_rwkv_layer
-    p["layers"] = [init_layer(g, cfg, dtype, device)
-                   for _ in range(cfg.num_layers)]
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        p["layers"] = [_init_dense_layer(g, cfg, dtype, device)
+                       for _ in range(cfg.num_layers)]
+        if fam == "vlm":
+            p["patch_proj"] = init_linear(g, cfg.patch_dim, D, dtype,
+                                          device=device)
+    elif fam == "ssm":
+        p["layers"] = [_init_rwkv_layer(g, cfg, dtype, device)
+                       for _ in range(cfg.num_layers)]
+    elif fam == "hybrid":
+        pat, n_groups, rem = _pattern(cfg)
+        p["groups"] = [{"blocks": [_init_hybrid_position(g, cfg, dtype,
+                                                         device, kind)
+                                   for kind in pat]}
+                       for _ in range(n_groups)]
+        p["tail"] = [_init_hybrid_position(g, cfg, dtype, device,
+                                           pat[j % len(pat)])
+                     for j in range(rem)]
+    elif fam == "audio":
+        De = cfg.encoder_d_model or D
+        p["enc_pos"] = normal((cfg.encoder_seq, De))
+        p["enc_layers"] = [encdec.init_encoder_layer(g, De, De * 4, dtype,
+                                                     device)
+                           for _ in range(cfg.encoder_layers)]
+        p["enc_ln_f"] = init_rmsnorm(De, dtype, device)
+        p["dec_layers"] = [encdec.init_decoder_layer(g, D, cfg.d_ff, dtype,
+                                                     device)
+                           for _ in range(cfg.num_layers)]
+    else:
+        raise ValueError(fam)
     return p
 
 
 def params_from_jax(tree: dict, cfg: ArchConfig, device) -> dict:
-    """The reference's ``init_params`` tree (numpy or JAX arrays, layer
-    leaves stacked on a leading ``L`` axis) as the port's parameters on
-    ``device``: RWKV6's ``w_base`` and ``u`` in float32, every other leaf
-    in ``cfg``'s dtype. Leaves pass through float32, which holds bfloat16
-    exactly, so values copy exactly."""
-    _require_ported(cfg)
+    """The reference's ``init_params`` tree (numpy or JAX arrays, scanned
+    leaves stacked on a leading axis) as the port's parameters on
+    ``device``: RWKV6's ``w_base`` and ``u``, RG-LRU's ``lam`` and the MoE
+    router in float32, every other leaf in ``cfg``'s dtype; the stacked
+    subtrees (``layers``, ``enc_layers``, ``dec_layers``, the hybrid's
+    ``groups``) as lists, the hybrid's ``tail`` as it is. Leaves pass
+    through float32, which holds bfloat16 exactly, so values copy
+    exactly."""
     device = torch.device(device)
     dtype = cfg.activation_dtype
 
-    def walk(node, name=None):
+    def walk(node, path=()):
         if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, path + (i,)) for i, v in enumerate(node)]
+        f32 = path[-1] in _F32_LEAVES or path[-3:] in _F32_PATHS
         t = torch.from_numpy(np.array(node, dtype=np.float32))
-        return t.to(device, torch.float32 if name in _F32_LEAVES else dtype)
+        return t.to(device, torch.float32 if f32 else dtype)
 
     def pick(node, i):
-        return {k: pick(v, i) if isinstance(v, dict) else v[i]
-                for k, v in node.items()}
+        if isinstance(node, dict):
+            return {k: pick(v, i) for k, v in node.items()}
+        if isinstance(node, list):
+            return [pick(v, i) for v in node]
+        return node[i]
 
-    out = walk({k: v for k, v in tree.items() if k != "layers"})
-    stacked = walk(tree["layers"])
-    n = stacked["ln1"]["g"].shape[0]
-    if n != cfg.num_layers:
-        raise ValueError(f"tree has {n} layers, cfg {cfg.num_layers}")
-    out["layers"] = [pick(stacked, i) for i in range(n)]
+    def first_leaf(node):
+        while isinstance(node, (dict, list)):
+            node = next(iter(node.values())) if isinstance(node, dict) \
+                else node[0]
+        return node
+
+    want = {"layers": cfg.num_layers, "dec_layers": cfg.num_layers,
+            "enc_layers": cfg.encoder_layers}
+    if cfg.family == "hybrid":
+        want["groups"] = _pattern(cfg)[1]
+    out = walk(tree)
+    for key in _STACKED:
+        if key not in out:
+            continue
+        n = first_leaf(out[key]).shape[0]
+        if n != want[key]:
+            raise ValueError(f"tree has {n} {key}, cfg {want[key]}")
+        out[key] = [pick(out[key], i) for i in range(n)]
     return out
 
 
 # ===========================================================================
-# layer body and forward (train / prefill logits)
+# layer bodies and forward (train / prefill logits)
 # ===========================================================================
 
-def _dense_layer_fwd(layer_p, cfg: ArchConfig, x, positions):
+def _dense_layer_fwd(layer_p, cfg: ArchConfig, x, positions,
+                     moe_stats: Optional[list] = None):
+    """One dense, moe or vlm layer: (x, the layer's aux loss). A MoE
+    layer's stats are appended to ``moe_stats`` when it is a list."""
     h = rmsnorm(layer_p["ln1"], x)
     x = x + attn_forward(layer_p["attn"], cfg, h, positions,
                          window=cfg.swa_window)
     h = rmsnorm(layer_p["ln2"], x)
+    if cfg.moe_num_experts:
+        y, stats = moe_forward(layer_p["moe"], cfg, h)
+        if moe_stats is not None:
+            moe_stats.append(stats)
+        return x + y, stats.aux_loss
     return (x + mlp_forward(layer_p["mlp"], h, cfg.mlp),
             torch.zeros((), device=x.device))
+
+
+def _hybrid_position_fwd(pos_p, cfg: ArchConfig, x, positions, kind: str):
+    if kind == "rec":
+        x = rglru_block(pos_p["blk"], cfg, x, pos_p["ln1"])
+    else:
+        h = rmsnorm(pos_p["ln1"], x)
+        x = x + attn_forward(pos_p["attn"], cfg, h, positions,
+                             window=cfg.local_attn_window)
+    h = rmsnorm(pos_p["ln2"], x)
+    return x + mlp_forward(pos_p["mlp"], h, cfg.mlp)
+
+
+def _hybrid_group_fwd(grp, cfg: ArchConfig, x, positions):
+    for pos_p, kind in zip(grp["blocks"], cfg.block_pattern):
+        x = _hybrid_position_fwd(pos_p, cfg, x, positions, kind)
+    return x
 
 
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
@@ -162,36 +266,84 @@ def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return emb[tokens.to(emb.device, torch.long)]
 
 
+def _with_patches(params, batch: dict, x: torch.Tensor) -> torch.Tensor:
+    """The vlm input: the projected patches (B, P, D) before the token
+    embeddings. The projection is float32, as the reference's float32
+    patches promote its product, then cast to the activations' dtype."""
+    w = params["patch_proj"]
+    pe = linear({k: v.float() for k, v in w.items()},
+                batch["patches"].to(x.device, torch.float32))
+    return torch.cat([pe.to(x.dtype), x], 1)
+
+
+def _encode(params, cfg: ArchConfig, frames: torch.Tensor, dtype
+            ) -> torch.Tensor:
+    """The audio encoder over the stub's frame embeddings (B, S_enc, De):
+    learned positions, the layers, and a final RMSNorm (the reference's,
+    though the layers use LayerNorm)."""
+    e = frames.to(params["enc_pos"].device, dtype) + params["enc_pos"]
+    for layer in params["enc_layers"]:
+        e = _ckpt(encdec.encoder_layer, layer, e, cfg.num_heads)
+    return rmsnorm(params["enc_ln_f"], e)
+
+
 def _head_matrix(params):
     head = params.get("head")
     return head if head is not None else params["embed"].T
 
 
-def forward_hidden(params, cfg: ArchConfig, batch: dict
+def forward_hidden(params, cfg: ArchConfig, batch: dict,
+                   moe_stats: Optional[list] = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Backbone only: returns (final-normed hidden (B, S, D), aux_loss).
-    ``batch`` is ``{"tokens": (B, S) int}`` for both ported families."""
-    _require_ported(cfg)
+
+    batch keys by family:
+      dense/moe/ssm/hybrid: tokens (B, S)
+      vlm:   tokens (B, S_text), patches (B, P, patch_dim); S = P + S_text
+      audio: tokens (B, S_dec), frames (B, S_enc, De)
+
+    With a list ``moe_stats``, each MoE layer's ``MoEStats`` (its routing
+    included) is appended to it, and the layers run without
+    checkpointing."""
+    fam = cfg.family
     x = _embed(params, batch["tokens"])
+    if fam == "vlm":
+        x = _with_patches(params, batch, x)
     aux = torch.zeros((), device=x.device)
-    if cfg.family == "dense":
-        positions = torch.arange(x.shape[1], device=x.device)
+    positions = torch.arange(x.shape[1], device=x.device)
+    if fam in ("dense", "moe", "vlm"):
         for layer in params["layers"]:
-            x, a = _ckpt(_dense_layer_fwd, layer, cfg, x, positions)
+            if moe_stats is None:
+                x, a = _ckpt(_dense_layer_fwd, layer, cfg, x, positions)
+            else:
+                x, a = _dense_layer_fwd(layer, cfg, x, positions, moe_stats)
             aux = aux + a
-    else:
+    elif fam == "ssm":
         for layer in params["layers"]:
             x = _ckpt(rwkv_block, layer["blk"], cfg, x,
                       (layer["ln1"], layer["ln2"]))
+    elif fam == "hybrid":
+        pat = tuple(cfg.block_pattern)
+        for grp in params["groups"]:
+            x = _ckpt(_hybrid_group_fwd, grp, cfg, x, positions)
+        for j, pos_p in enumerate(params["tail"]):
+            x = _hybrid_position_fwd(pos_p, cfg, x, positions,
+                                     pat[j % len(pat)])
+    elif fam == "audio":
+        enc = _encode(params, cfg, batch["frames"], x.dtype)
+        for layer in params["dec_layers"]:
+            x = _ckpt(encdec.decoder_layer, layer, x, enc, cfg.num_heads)
+    else:
+        raise ValueError(fam)
     return rmsnorm(params["norm_f"], x), aux
 
 
 def forward(params, cfg: ArchConfig, batch: dict
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full logits (B, S, V_padded) and the aux loss (0 for both ported
-    families) — the serving/debug path. Training goes through
-    :func:`loss_fn` (chunked CE; full-sequence float32 logits never
-    exist)."""
+    """Full logits (B, S, V_padded) and the aux loss (MoE's balance loss
+    summed over the layers; 0 for the other families) — the serving/debug
+    path. Training goes through :func:`loss_fn` (chunked CE; full-sequence
+    float32 logits never exist)."""
     x, aux = forward_hidden(params, cfg, batch)
     return x @ _head_matrix(params), aux
 
@@ -202,16 +354,21 @@ def forward(params, cfg: ArchConfig, batch: dict
 
 def _labels_and_mask(cfg: ArchConfig, batch: dict, S: int, device):
     """Next-token labels aligned to hidden positions, with a validity mask
-    (the last position has no next token). The vlm branch, whose patch
-    prefix is unsupervised, arrives with that family."""
-    if cfg.family == "vlm":
-        raise NotImplementedError("vlm labels are not ported yet (ROADMAP.md,"
-                                  " Queue 1 item 9)")
+    (the last position has no next token). For vlm, position p ≥ P-1
+    predicts text token p-(P-1); the patch prefix itself is
+    unsupervised."""
     tokens = batch["tokens"].to(device)
     B = tokens.shape[0]
+    last = (torch.arange(S, device=device) < S - 1)[None]
+    if cfg.family == "vlm":
+        P = batch["patches"].shape[1]
+        s_text = tokens.shape[1]
+        idx = torch.arange(S, device=device) - (P - 1)
+        valid = (idx >= 0) & (idx < s_text)
+        labels = tokens[:, torch.clamp(idx, 0, s_text - 1)]
+        return labels, (valid[None] & last).expand(B, S)
     labels = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], 1)
-    mask = (torch.arange(S, device=device) < S - 1)[None].expand(B, S)
-    return labels, mask
+    return labels, last.expand(B, S)
 
 
 def _ce_chunk(W, xc, lc, mc):
@@ -250,8 +407,8 @@ def chunked_ce(params, x: torch.Tensor, labels: torch.Tensor,
 def loss_fn(params, cfg: ArchConfig, batch: dict,
             aux_weight: float = 0.01) -> tuple[torch.Tensor, dict]:
     """(total, {"ce", "aux"}): the mean next-token CE plus ``aux_weight``
-    times the aux loss (zero for dense and ssm; MoE's balance loss arrives
-    with that family)."""
+    times the aux loss (MoE's balance loss summed over the layers; zero
+    for the other families)."""
     x, aux = forward_hidden(params, cfg, batch)
     labels, mask = _labels_and_mask(cfg, batch, x.shape[1], x.device)
     ce = chunked_ce(params, x, labels, mask)
@@ -263,18 +420,35 @@ def loss_fn(params, cfg: ArchConfig, batch: dict,
 # ===========================================================================
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
-                      device=None) -> DecodeState:
-    """Empty per-layer caches: a KV cache of ``min(max_seq, swa_window)``
-    slots per dense layer; a zero state per RWKV6 layer, whose state does
-    not grow with the sequence (``max_seq`` unused)."""
-    _require_ported(cfg)
-    device = resolve_device(device)
+                      device=None, enc: Optional[torch.Tensor] = None,
+                      params=None) -> DecodeState:
+    """Empty per-layer caches: a KV cache of ``min(max_seq, window)``
+    slots per attention layer or position (the sliding window, or the
+    hybrid's local window); a zero state per RWKV6 layer and per RG-LRU
+    position, whose state does not grow with the sequence. Audio needs
+    the encoder's output ``enc`` and ``params``, from which each decoder
+    layer's cross-attention keys and values are computed (on ``enc``'s
+    device)."""
     dtype = cfg.activation_dtype
-    if cfg.family == "dense":
-        def one():
-            return init_kv_cache(batch, max_seq, cfg.num_kv_heads, cfg.hdim,
-                                 dtype, window=cfg.swa_window, device=device)
-    else:
+    fam = cfg.family
+    if fam == "audio":
+        if enc is None or params is None:
+            raise ValueError("an audio decode state needs the encoder "
+                             "output (enc) and the params")
+        caches = [encdec.init_decoder_cache(layer, enc, batch, max_seq,
+                                            cfg.num_heads, cfg.d_model, dtype)
+                  for layer in params["dec_layers"]]
+        return DecodeState(caches=caches, enc=enc)
+    device = resolve_device(device)
+
+    def kv(window):
+        return init_kv_cache(batch, max_seq, cfg.num_kv_heads, cfg.hdim,
+                             dtype, window=window, device=device)
+
+    if fam in ("dense", "moe", "vlm"):
+        return DecodeState(caches=[kv(cfg.swa_window)
+                                   for _ in range(cfg.num_layers)])
+    if fam == "ssm":
         hd = cfg.rwkv_head_dim
         H = cfg.d_model // hd
 
@@ -286,7 +460,19 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
                                  device=device),
                 cm_x=torch.zeros((batch, cfg.d_model), dtype=dtype,
                                  device=device))
-    return DecodeState(caches=[one() for _ in range(cfg.num_layers)])
+        return DecodeState(caches=[one() for _ in range(cfg.num_layers)])
+    if fam == "hybrid":
+        pat, n_groups, rem = _pattern(cfg)
+
+        def pos_cache(kind):
+            if kind == "rec":
+                return init_rglru_state(batch, cfg, device)
+            return kv(cfg.local_attn_window)
+        return DecodeState(
+            caches=[{"blocks": [pos_cache(kind) for kind in pat]}
+                    for _ in range(n_groups)],
+            tail=[pos_cache(pat[j % len(pat)]) for j in range(rem)])
+    raise ValueError(fam)
 
 
 def _dense_layer_decode(layer_p, cfg: ArchConfig, x, cache: KVCache):
@@ -295,24 +481,67 @@ def _dense_layer_decode(layer_p, cfg: ArchConfig, x, cache: KVCache):
                            window=cfg.swa_window)
     x = x + a
     h = rmsnorm(layer_p["ln2"], x)
+    if cfg.moe_num_experts:
+        y, _ = moe_forward(layer_p["moe"], cfg, h)
+        return x + y, cache
     return x + mlp_forward(layer_p["mlp"], h, cfg.mlp), cache
+
+
+def _hybrid_position_decode(pos_p, cfg: ArchConfig, x, pos_c, kind: str):
+    if kind == "rec":
+        x, pos_c = rglru_block_decode(pos_p["blk"], cfg, x, pos_p["ln1"],
+                                      pos_c)
+    else:
+        h = rmsnorm(pos_p["ln1"], x)
+        a, pos_c = attn_decode(pos_p["attn"], cfg, h, pos_c,
+                               window=cfg.local_attn_window)
+        x = x + a
+    h = rmsnorm(pos_p["ln2"], x)
+    return x + mlp_forward(pos_p["mlp"], h, cfg.mlp), pos_c
 
 
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
                 state: DecodeState) -> tuple[torch.Tensor, DecodeState]:
     """token: (B,) int — returns (logits (B, V_padded), new state)."""
-    _require_ported(cfg)
+    fam = cfg.family
     x = _embed(params, token[:, None])                      # (B, 1, D)
-    caches = []
-    for layer, st in zip(params["layers"], state.caches):
-        if cfg.family == "dense":
-            x, st = _dense_layer_decode(layer, cfg, x, st)
-        else:
-            x, st = rwkv_block_decode(layer["blk"], cfg, x,
-                                      (layer["ln1"], layer["ln2"]), st)
-        caches.append(st)
+    if fam in ("dense", "moe", "vlm", "ssm"):
+        caches = []
+        for layer, st in zip(params["layers"], state.caches):
+            if fam == "ssm":
+                x, st = rwkv_block_decode(layer["blk"], cfg, x,
+                                          (layer["ln1"], layer["ln2"]), st)
+            else:
+                x, st = _dense_layer_decode(layer, cfg, x, st)
+            caches.append(st)
+        state = state._replace(caches=caches)
+    elif fam == "hybrid":
+        pat = tuple(cfg.block_pattern)
+        caches = []
+        for grp_p, grp_c in zip(params["groups"], state.caches):
+            blocks = []
+            for pos_p, pos_c, kind in zip(grp_p["blocks"], grp_c["blocks"],
+                                          pat):
+                x, pos_c = _hybrid_position_decode(pos_p, cfg, x, pos_c,
+                                                   kind)
+                blocks.append(pos_c)
+            caches.append({"blocks": blocks})
+        tail = []
+        for j, (pos_p, pos_c) in enumerate(zip(params["tail"], state.tail)):
+            x, pos_c = _hybrid_position_decode(pos_p, cfg, x, pos_c,
+                                               pat[j % len(pat)])
+            tail.append(pos_c)
+        state = state._replace(caches=caches, tail=tail)
+    elif fam == "audio":
+        caches = []
+        for layer, c in zip(params["dec_layers"], state.caches):
+            x, c = encdec.decoder_layer_decode(layer, x, c, cfg.num_heads)
+            caches.append(c)
+        state = state._replace(caches=caches)
+    else:
+        raise ValueError(fam)
     x = rmsnorm(params["norm_f"], x)
-    return (x @ _head_matrix(params))[:, 0], state._replace(caches=caches)
+    return (x @ _head_matrix(params))[:, 0], state
 
 
 # ===========================================================================
@@ -340,21 +569,71 @@ def _prefill_kv(attn_p, cfg: ArchConfig, h, positions,
     return KVCache(k=k_new, v=v_new, pos=s)
 
 
+def _prefill_hybrid_position(pos_p, cfg: ArchConfig, x, positions,
+                             max_seq: int, kind: str):
+    """One hybrid position over the prompt: (x, its decode state)."""
+    if kind == "rec":
+        x2, st = rglru_block(pos_p["blk"], cfg, x, pos_p["ln1"],
+                             return_state=True)
+    else:
+        h = rmsnorm(pos_p["ln1"], x)
+        cache = init_kv_cache(x.shape[0], max_seq, cfg.num_kv_heads,
+                              cfg.hdim, cfg.activation_dtype,
+                              window=cfg.local_attn_window, device=x.device)
+        st = _prefill_kv(pos_p["attn"], cfg, h, positions, cache)
+        x2 = x + attn_forward(pos_p["attn"], cfg, h, positions,
+                              window=cfg.local_attn_window)
+    h = rmsnorm(pos_p["ln2"], x2)
+    return x2 + mlp_forward(pos_p["mlp"], h, cfg.mlp), st
+
+
+def _prefill_audio(params, cfg: ArchConfig, batch: dict, max_seq: int
+                   ) -> tuple[torch.Tensor, DecodeState]:
+    """The encoder once; then the decoder over the prompt, filling each
+    layer's self-attention cache with the prompt's keys and values."""
+    x = _embed(params, batch["tokens"])
+    B, s_len, _ = x.shape
+    enc = _encode(params, cfg, batch["frames"], x.dtype)
+    state = init_decode_state(cfg, B, max_seq, enc=enc, params=params)
+    dh = cfg.d_model // cfg.num_heads
+    caches = []
+    for layer, cache in zip(params["dec_layers"], state.caches):
+        h = layernorm(layer["ln1"], x)
+        kv = cache.self_kv
+        length = kv.k.shape[1]
+        k_new, v_new = kv.k.clone(), kv.v.clone()
+        n = min(s_len, length)
+        k_new[:, :n] = linear(layer["self_attn"]["wk"], h).reshape(
+            B, s_len, cfg.num_heads, dh)[:, :n]
+        v_new[:, :n] = linear(layer["self_attn"]["wv"], h).reshape(
+            B, s_len, cfg.num_heads, dh)[:, :n]
+        caches.append(cache._replace(self_kv=KVCache(k=k_new, v=v_new,
+                                                     pos=s_len)))
+        x = encdec.decoder_layer(layer, x, enc, cfg.num_heads)
+    x = rmsnorm(params["norm_f"], x)
+    return x[:, -1] @ _head_matrix(params), state._replace(caches=caches)
+
+
 def prefill(params, cfg: ArchConfig, batch: dict, max_seq: int
             ) -> tuple[torch.Tensor, DecodeState]:
     """Run the prompt through the model, returning last-token logits
-    (B, V_padded) and the decode-ready state after the last token. Dense
-    layers recompute the prompt's K/V beside the layer's forward, as the
-    reference does; where the reference runs the whole forward a second
-    time for the caches, the port fills them in the same pass, which
-    computes the same values. RWKV6 threads its state through the
-    sequence pass."""
-    _require_ported(cfg)
+    (B, V_padded) and the decode-ready state after the last token. Dense,
+    moe and vlm layers recompute the prompt's K/V beside the layer's
+    forward, as the reference does; where the reference runs the whole
+    forward a second time for the caches, the port fills them in the same
+    pass, which computes the same values. RWKV6 and the hybrid thread
+    their recurrent and window states through the sequence pass; audio
+    encodes once and fills the decoder's self-attention caches."""
+    fam = cfg.family
+    if fam == "audio":
+        return _prefill_audio(params, cfg, batch, max_seq)
     x = _embed(params, batch["tokens"])
-    states = []
-    if cfg.family == "dense":
-        B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device)
+    if fam == "vlm":
+        x = _with_patches(params, batch, x)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    states, tail = [], None
+    if fam in ("dense", "moe", "vlm"):
         for layer in params["layers"]:
             cache = init_kv_cache(B, max_seq, cfg.num_kv_heads, cfg.hdim,
                                   cfg.activation_dtype,
@@ -363,11 +642,28 @@ def prefill(params, cfg: ArchConfig, batch: dict, max_seq: int
             states.append(_prefill_kv(layer["attn"], cfg, h, positions,
                                       cache))
             x, _ = _dense_layer_fwd(layer, cfg, x, positions)
-    else:
+    elif fam == "ssm":
         for layer in params["layers"]:
             x, st = rwkv_block(layer["blk"], cfg, x,
                                (layer["ln1"], layer["ln2"]),
                                return_state=True)
             states.append(st)
+    elif fam == "hybrid":
+        pat = tuple(cfg.block_pattern)
+        for grp in params["groups"]:
+            blocks = []
+            for pos_p, kind in zip(grp["blocks"], pat):
+                x, st = _prefill_hybrid_position(pos_p, cfg, x, positions,
+                                                 max_seq, kind)
+                blocks.append(st)
+            states.append({"blocks": blocks})
+        tail = []
+        for j, pos_p in enumerate(params["tail"]):
+            x, st = _prefill_hybrid_position(pos_p, cfg, x, positions,
+                                             max_seq, pat[j % len(pat)])
+            tail.append(st)
+    else:
+        raise ValueError(fam)
     x = rmsnorm(params["norm_f"], x)
-    return x[:, -1] @ _head_matrix(params), DecodeState(caches=states)
+    return x[:, -1] @ _head_matrix(params), DecodeState(caches=states,
+                                                         tail=tail)
