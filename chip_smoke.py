@@ -30,7 +30,11 @@ the run with a non-zero exit and no result line):
               chunk 24 and chunk 1; T 126 at chunk 63), a ragged dv (48),
               and odd shapes (BH 3, T 128, dk 32; BH 5, T 96, dk 30, dv 45,
               chunk 32), with a nonzero u and w in (0.5, 1], within 5e-4 of
-              its plain version, and once against the token scan. Each
+              its plain version, and once against the token scan; then at a
+              constant w = 0.45, below its domain (BH 2, T 128, dk = dv =
+              16, chunk 16 and 64; BH 512, T 2048, dk = dv = 64, chunk 64),
+              against its plain version within 5e-4 where both are finite,
+              the non-finite positions of each printed. Each
               kernel's device time (calls captured in a CUDA graph, timed
               with CUDA events) stands beside its plain version's, one
               PyTorch call that computes the same function where there is
@@ -144,6 +148,24 @@ the run with a non-zero exit and no result line):
               bitwise the straight sharded run; then the measurements
               above. Every gate is agreed across ranks, so they fail
               together.
+  dryrun      LeapGNN's pod dry run: python -m repro_torch.launch.dryrun_gnn
+              and the same with --multi-pod, each its own process (one
+              default process group per process), at the reference's
+              default shapes (SAGE 3 x 128, fanout 10, d 600, batch_pad 8,
+              16,384 local rows, r_max 2048): rank 0 of a fake 256- or
+              512-rank world runs its shard body on the card, T = n steps.
+              Reads each record under build/dryrun_torch/ and prints the
+              [ok] line, the per-rank census of collectives, memory, FLOPs,
+              rank 0's iteration time by CUDA events and the kernel
+              launches; gates the census against ShardComm's own bytes and
+              the closed form (all_to_all n*r_max*4 + n*r_max*d*4, the
+              all_reduce equal to the gradients plus the loss) and
+              gather_rows launched (layers+1) x T times in the measured
+              call. A process that fails fails the run. Then gather_rows at
+              one (shard, step)'s 4 hops on the 256-shard workspace
+              (540,672 x 600), bitwise and timed; and the dry run at world 8
+              with narrowed shapes on the card and on the CPU, loss and
+              every grad leaf within 1e-5 of the leaf's largest value.
   6. rwkv6    rwkv6-7b at its published width, cut to 2 layers, float32:
               the CUDA prefill (through the linattn kernel) against the
               same parameters' prefill on the CPU (plain versions), and
@@ -218,7 +240,9 @@ the run with a non-zero exit and no result line):
               (device busy share, time by kernel).
 
 Output: one line per measurement; then the kernels' JSON line (launches
-summed over the paths, per path under ``launches_by_path``, the
+summed over the paths, per path under ``launches_by_path`` (the dry
+runs' as gnn_dryrun_256 and gnn_dryrun_512, counted in their own
+processes over the measured call), the
 transformer phases' paths with 0 where no kernel runs; gather_agg's
 timings at the P3 shape, every shape's under ``shapes``; with --world
 N, the mesh phase's summary instead), the card's name and power limit,
@@ -270,6 +294,7 @@ from repro_torch.graph.sampler import (micrograph_split,  # noqa: E402
 from repro_torch.kernels import gather_agg as ga  # noqa: E402
 from repro_torch.kernels import linattn as la  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.launch import dryrun_gnn  # noqa: E402
 from repro_torch.launch.serve import LLMServer, generate  # noqa: E402
 from repro_torch.launch.train import (accumulated_grads,  # noqa: E402
                                       make_train_step, pick_optimizer,
@@ -303,6 +328,12 @@ BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor cores, dense
 SRC = "src/repro_torch/kernels/csrc/gather_agg.cu"
 LA_SRC = "src/repro_torch/kernels/csrc/linattn.cu"
 LA_TOL = 5e-4      # tests/test_kernels.py: chunked kernel vs plain, f32
+# a constant decay below linattn's domain (0.5, 1], and the shapes it is
+# checked at: tests/test_torch_linattn.py's (BH, T, dk, dv, chunk) and the
+# RWKV6 prefill's
+LA_OUTSIDE_W = 0.45
+LA_OUTSIDE_CASES = ((2, 128, 16, 16, 16), (2, 128, 16, 16, 64),
+                    (512, 2048, 64, 64, 64))
 WIDE_TOL = 1e-3    # full-width 2-layer f32 prefill, CUDA vs CPU
 # Its returned state S, CUDA vs CPU: measured max abs err 2.1e-4 on |S| up
 # to 168 (H100), so an absolute floor plus a share of |S|.
@@ -343,6 +374,10 @@ MESH_MODES = (("pregather", True, None), ("per-step", False, False),
 MESH_TOL = 1e-5
 MESH_FIT_RTOL = 1e-5   # fit losses, sharded vs emulated (summation order)
 MESH_TIMEOUT_S = 600   # a collective that waits longer fails the run
+DRYRUN_TIMEOUT_S = 300     # one dry-run process; it is killed past this
+# [dryrun] world 8, card vs CPU: loss and every grad leaf within this share
+# of the leaf's largest |value| (summation order only)
+DRYRUN_TOL = 1e-5
 # [lm-wide]: CUDA vs CPU logits and grads, and decode vs the full forward,
 # each within this share of the largest |value| (summation order only)
 LM_TOL = 1e-4
@@ -845,9 +880,52 @@ def check_linattn(seed: int) -> dict:
                              f"{e_scan} over tolerance {LA_TOL}")
     log("kernels", f"linattn BH=8 T=64 chunk=16 vs the token scan "
                    f"(linattn_ref): max abs err {e_scan}")
+    check_linattn_outside_domain(g)
     return dict(name="linattn", route="cuda", source=LA_SRC,
                 replaces="src/repro/kernels/linattn.py:93",
                 max_abs_err=max(err, e_scan), **timed[2048])
+
+
+def check_linattn_outside_domain(g) -> None:
+    """The kernel at a constant decay w = LA_OUTSIDE_W, below its domain
+    (0.5, 1], against its plain version on the same inputs (the CPU test
+    tests/test_torch_linattn.py::test_chunked_ref_outside_the_decay_domain
+    holds the plain version against the Pallas kernel there). Gated within
+    LA_TOL only where both outputs are finite; where either is not, the
+    positions are printed, not gated."""
+    for BH, T, dk, dv, chunk in LA_OUTSIDE_CASES:
+        q, k, v, w, u = linattn_inputs(g, BH, T, dk, dv, True)
+        w = torch.full_like(w, LA_OUTSIDE_W)
+        o, s = la.linattn_chunked(q, k, v, w, u, chunk=chunk)
+        o_ref, s_ref = ref.linattn_chunked_ref(q, k, v, w, u, chunk=chunk)
+        torch.cuda.synchronize()
+        msg, bad = [], []
+        for name, got, want in (("o", o, o_ref), ("S", s, s_ref)):
+            fin_k, fin_p = torch.isfinite(got), torch.isfinite(want)
+            both = fin_k & fin_p
+            err = float((got[both] - want[both]).abs().max()) \
+                if both.any() else 0.0
+            big = float(want[both].abs().max()) if both.any() else 0.0
+            first = (int(torch.nonzero(~both)[0, 1]) if name == "o"
+                     and not both.all() else None)
+            msg.append(f"{name}: non-finite kernel {int((~fin_k).sum())}, "
+                       f"plain {int((~fin_p).sum())} of {got.numel()}"
+                       + (f" (first at t {first})" if first is not None
+                          else "")
+                       + f"; where both finite max abs err {err:.3e} "
+                         f"(|{name}| up to {big:.3e})")
+            if both.any() and not torch.allclose(got[both], want[both],
+                                                 rtol=LA_TOL, atol=LA_TOL):
+                bad.append(name)
+        log("kernels", f"linattn outside its domain, w {LA_OUTSIDE_W}, "
+                       f"BH={BH} T={T} dk={dk} dv={dv} chunk={chunk}: "
+                       + "; ".join(msg) + f" (tolerance {LA_TOL} where both "
+                                          f"are finite)")
+        if bad:
+            raise AssertionError(f"linattn at w {LA_OUTSIDE_W} (BH={BH} "
+                                 f"T={T} chunk={chunk}) differs from its "
+                                 f"plain version where both are finite: "
+                                 f"{bad}")
 
 
 # ---------------------------------------------------------------------------
@@ -2371,6 +2449,163 @@ def phase_mesh(world: int, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# [dryrun]: LeapGNN's pod dry run, rank 0 of 256 and 512 shards
+# ---------------------------------------------------------------------------
+
+def run_python(args: list, what: str) -> str:
+    """``python args`` from the checkout's root with the port on the path;
+    its stdout. A non-zero exit, or DRYRUN_TIMEOUT_S passing (the child is
+    killed), fails the run."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+           if p]))
+    proc = subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True,
+                          timeout=DRYRUN_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited with {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def dryrun_world(n: int, seed: int) -> int:
+    """``python -m repro_torch.launch.dryrun_gnn`` at the reference's
+    default shapes on n shards: its [ok] line, then its record's census,
+    memory, FLOPs, rank 0's time and launches, gated against the closed
+    form. Returns the record's gather_rows launches (its measured call);
+    sets AGG_BY_PATH for the path."""
+    path = f"gnn_dryrun_{n}"
+    out = dryrun_gnn.RESULTS_DIR / f"hopgnn.sage.{n}shards.json"
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    stdout = run_python(["-m", "repro_torch.launch.dryrun_gnn",
+                         *(["--multi-pod"] if n == 512 else []),
+                         "--seed", str(seed)], f"the {n}-shard dry run")
+    wall = time.perf_counter() - t0
+    for line in stdout.splitlines():
+        log("dryrun", line)
+    rec = json.loads(out.read_text())
+    sh, coll, mem = rec["shapes"], rec["collectives"], rec["memory"]
+    L, r, d = sh["layers"], sh["r_max"], sh["feature_dim"]
+    want = (L + 1) * n
+    got = rec["launches"]["gather_rows"]
+    AGG_BY_PATH[path] = rec["launches"]["gather_agg"]
+    log("dryrun", f"{n} shards ({rec['mesh']}, T {rec['world']}, "
+                  f"{rec['device']}; process {wall:.1f} s): per-rank census "
+                  f"{coll['bytes_by_op']} B in {coll['count_by_op']}, total "
+                  f"{coll['total_bytes']} B; ShardComm {rec['shard_comm']}")
+    log("dryrun", f"{n} shards: memory argument "
+                  f"{mem['argument_size_in_bytes']} B, output "
+                  f"{mem['output_size_in_bytes']} B, temp (peak allocated "
+                  f"over the call) {mem['temp_size_in_bytes']} B; flops "
+                  f"(FlopCounterMode, all T steps, forward and backward) "
+                  f"{rec['flops']:.0f}; rank 0's iteration "
+                  f"{rec['iteration_ms']:.3f} ms by CUDA events, "
+                  f"{rec['iteration_ms'] / rec['world']:.5f} ms per (shard, "
+                  f"step); fake backend wrote the receive buffer "
+                  f"{rec['fake_all_to_all_writes_receive_buffer']}; loss "
+                  f"{rec['loss']:.6f}; {card_line()}")
+    log("dryrun", f"{n} shards: gather_rows launches {got} (want {want}); "
+                  f"gather_agg launches {rec['launches']['gather_agg']}")
+    a2a = n * r * 4 + n * r * d * 4
+    checks = {
+        "status ok": rec["status"] == "ok",
+        "mesh": rec["mesh"] == f"{n}x1(data)",
+        "gather_rows launches": got == want,
+        "census = ShardComm": rec["shard_comm"]["nbytes"] == {
+            "all_to_all": coll["bytes_by_op"].get("all-to-all"),
+            "all_reduce": coll["bytes_by_op"].get("all-reduce")},
+        "counts": coll["count_by_op"] == {"all-to-all": 2, "all-reduce": 1},
+        "all-to-all bytes n*r*4 + n*r*d*4": coll["bytes_by_op"].get(
+            "all-to-all") == a2a,
+        "all-reduce bytes = output": coll["bytes_by_op"].get("all-reduce")
+        == mem["output_size_in_bytes"],
+        "finite loss": np.isfinite(rec["loss"]),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"the {n}-shard dry run failed {failed}")
+    return got
+
+
+_DRYRUN_8 = """
+import json, sys, torch
+from repro_torch.launch import dryrun_gnn
+out = {}
+for device in ("cuda", "cpu"):
+    rec, grads, loss = dryrun_gnn.run(8, device=device, seed=int(sys.argv[2]),
+                                      results_dir=None, batch_pad=4,
+                                      r_max=256, feature_dim=128, hidden=32)
+    out[device] = dict(rec=json.loads(json.dumps(rec)),
+                       grads=[g.cpu() for g in grads],
+                       loss=loss.cpu())
+torch.save(out, sys.argv[1])
+"""
+
+
+def dryrun_card_vs_cpu(seed: int) -> None:
+    """The dry run at world 8 with the narrowed shapes on the card and on
+    the CPU, in one process (each run starts and destroys its own fake
+    world): loss and every gradient leaf within DRYRUN_TOL of the leaf's
+    largest |value|, the census equal."""
+    base = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+    os.makedirs(base, exist_ok=True)
+    saved = os.path.join(base, "world8.pt")
+    run_python(["-c", _DRYRUN_8, saved, str(seed)], "the world-8 dry run")
+    res = torch.load(saved)
+    cu, cp = res["cuda"], res["cpu"]
+    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(cu["grads"], cp["grads"])]
+    e_loss = abs(float(cu["loss"]) - float(cp["loss"])) \
+        / max(abs(float(cp["loss"])), 1e-30)
+    same = cu["rec"]["collectives"] == cp["rec"]["collectives"]
+    log("dryrun", f"world 8 (batch_pad 4, r_max 256, d 128, hidden 32), "
+                  f"card vs CPU: loss {float(cu['loss']):.7f} vs "
+                  f"{float(cp['loss']):.7f} (rel {e_loss:.3e}), worst grad "
+                  f"leaf {max(errs):.3e} of its max over {len(errs)} leaves "
+                  f"(bound {DRYRUN_TOL}); census equal {same}; gather_rows "
+                  f"launches {cu['rec']['launches']['gather_rows']}; "
+                  f"card {cu['rec']['iteration_ms']:.3f} ms, CPU "
+                  f"{cp['rec']['iteration_ms']:.3f} ms")
+    if not (max(errs) <= DRYRUN_TOL and e_loss <= DRYRUN_TOL and same):
+        raise AssertionError("the world-8 dry run differs between the card "
+                             "and the CPU")
+
+
+def phase_dryrun(seed: int) -> dict:
+    """[dryrun]: the 256- and 512-shard dry runs, each its own process;
+    gather_rows bitwise at one step's hops on the 256-shard workspace; the
+    world-8 dry run on the card against the CPU. Returns the main path's
+    gather_rows launches per world (each the subprocess's own count over
+    its measured call)."""
+    t_phase = time.perf_counter()
+    launches = {f"gnn_dryrun_{n}": dryrun_world(n, seed) for n in (256, 512)}
+    cfg = GNNConfig(model="sage", num_layers=3, hidden_dim=128,
+                    feature_dim=600, num_classes=dryrun_gnn.NUM_CLASSES,
+                    fanout=10)
+    _, table, cache, dev, _ = dryrun_gnn.shard_args(
+        cfg, 256, batch_pad=8, local_rows=16384, r_max=2048, device="cuda",
+        seed=seed)
+    # rank 0's loopback workspace [local | cached | fetched]
+    ws = torch.cat([table[0], cache[0],
+                    table[0].index_select(0, dev["req"][0].reshape(-1)
+                                          .long())], 0)
+    tot = time_gather_rows("dryrun", "256-shard step 0", ws,
+                           [h[0, 0] for h in dev["hop_idx"]])
+    log("dryrun", f"gather_rows, one (shard, step)'s 4 hops on the "
+                  f"{ws.shape[0]}-row workspace of width {ws.shape[1]}: "
+                  f"device {tot['ms']:.5f} ms (plain {tot['plain_ms']:.5f}, "
+                  f"index_select {tot['library_ms']:.5f}, bound "
+                  f"{tot['bound_ms']:.5f})")
+    del table, cache, dev, ws
+    free_card()
+    dryrun_card_vs_cpu(seed)
+    log("dryrun", f"phase done in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: RWKV6 at full width, 2 layers, float32
 # ---------------------------------------------------------------------------
 
@@ -3175,6 +3410,7 @@ def main() -> int:
             ds, store, part, cfg, args.seed)
         by_path["gather_rows"]["gnn_train_mesh"] = phase_mesh1(ds, cfg,
                                                                args.seed)
+        by_path["gather_rows"].update(phase_dryrun(args.seed))
         by_path["gather_agg"].update(AGG_BY_PATH)
         if any(by_path["gather_agg"].values()):
             raise AssertionError(f"a path launched gather_agg: "

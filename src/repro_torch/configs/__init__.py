@@ -6,14 +6,20 @@ h2o-danube-3-4b, nemotron-4-340b; ``moe``: deepseek-moe-16b,
 qwen2-moe-a2.7b; ``ssm``: rwkv6-7b; ``hybrid``: recurrentgemma-9b;
 ``vlm``: pixtral-12b; ``audio``: whisper-base); ``smoke_variant(cfg)``
 returns the reduced same-family variant the CPU tests use (≤2 layers or
-one pattern period, d_model ≤ 256, ≤4 experts, small vocab). The
-reference's ``input_specs``/``SHAPES`` belong to its dry run and have no
-counterpart here.
+one pattern period, d_model ≤ 256, ≤4 experts, small vocab).
+``SHAPES`` names the reference's four input shapes, ``shape_applicable``
+says whether an architecture runs one, and ``input_specs(cfg, shape)``
+returns stand-ins for every data input of a step as tensors on the
+``meta`` device (the reference's ``ShapeDtypeStruct``s): shapes and dtypes,
+no storage.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Optional
+
+import torch
 
 from repro_torch.models.transformer.config import ArchConfig
 
@@ -38,6 +44,30 @@ def get_config(arch_id: str) -> ArchConfig:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.CONFIG
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape_name: str) -> tuple[bool, str]:
+    """(runs?, reason). long_500k requires sub-quadratic decode state."""
+    if shape_name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full attention: a 524288-token KV cache is O(S) "
+                       "per token with O(S) HBM — skipped per DESIGN.md §4")
+    return True, ""
 
 
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
@@ -86,3 +116,37 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
         kw["num_patches"] = 16
         kw["patch_dim"] = 64
     return dataclasses.replace(cfg, **kw)
+
+
+def input_specs(cfg: ArchConfig, shape_name: str,
+                seq: Optional[int] = None,
+                batch: Optional[int] = None) -> dict:
+    """Stand-ins for the *data* inputs of a step: tensors on the ``meta``
+    device with the reference's shapes and dtypes (token ids int32,
+    patches and frames in ``cfg.activation_dtype``).
+
+    train/prefill → the forward batch dict; decode → {"token": (B,)}.
+    """
+    sh = SHAPES[shape_name]
+    S = seq if seq is not None else sh.seq_len
+    B = batch if batch is not None else sh.global_batch
+
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    i32 = torch.int32
+    act = cfg.activation_dtype
+    if sh.kind == "decode":
+        return {"token": spec((B,), i32)}
+    specs: dict = {}
+    if cfg.family == "vlm":
+        P = min(cfg.num_patches, max(S // 4, 1))
+        specs["patches"] = spec((B, P, cfg.patch_dim), act)
+        specs["tokens"] = spec((B, S - P), i32)
+    elif cfg.family == "audio":
+        De = cfg.encoder_d_model or cfg.d_model
+        specs["frames"] = spec((B, cfg.encoder_seq, De), act)
+        specs["tokens"] = spec((B, S), i32)
+    else:
+        specs["tokens"] = spec((B, S), i32)
+    return specs

@@ -233,11 +233,20 @@ class ShardComm:
     which sum with ``all_reduce`` and then divide. ``counts`` and
     ``nbytes`` record, per collective, the executions this instance made
     and the bytes each rank handed them (its own chunk included) —
-    :func:`collective_counts` reads the former."""
+    :func:`collective_counts` reads the former.
+
+    On a ``fake`` group (the pod dry run, :mod:`repro_torch.launch.mesh`)
+    no data crosses between ranks, and whether the backend writes the
+    receive buffer at all depends on the torch version. So there an
+    all_to_all's receive buffer is seeded with a copy of the send buffer
+    before the collective (``loopback``): every peer asks this rank for
+    what it asked them for, and fetched rows are rows of its own shard at
+    valid indices. Real groups (gloo, NCCL) receive into a fresh buffer."""
 
     def __init__(self, group=None):
         self.group = group
         self.size = dist.get_world_size(group)
+        self.loopback = dist.get_backend(group) == "fake"
         self.counts = {"all_to_all": 0, "all_reduce": 0}
         self.nbytes = {"all_to_all": 0, "all_reduce": 0}
 
@@ -251,6 +260,8 @@ class ShardComm:
         exchange (``r_max = 0``) is issued like any other."""
         x = x.contiguous()
         out = torch.empty_like(x)
+        if self.loopback:
+            out.copy_(x)
         dist.all_to_all_single(out, x, group=self.group)
         self._note("all_to_all", x)
         return out

@@ -25,7 +25,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for n in names:
     importlib.import_module(n)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
+             if k.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
+             or k.startswith("torch.testing._internal.distributed"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -86,7 +87,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                  "serve.embeddings", "models.transformer.attention",
                  "models.transformer.mlp", "launch.train", "configs.qwen2_1_5b",
                  "configs.qwen2_5_3b", "configs.h2o_danube_3_4b",
-                 "configs.nemotron_4_340b"):
+                 "configs.nemotron_4_340b", "launch.mesh", "launch.dryrun",
+                 "launch.dryrun_gnn"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -160,3 +162,14 @@ def test_train_entry_without_gpu_raises():
         train.init_all(smoke_variant(get_config("qwen2-1.5b")))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--arch", "qwen2-1.5b", "--smoke", "--steps", "1"])
+
+
+def test_dryrun_entry_without_gpu_raises():
+    _no_gpu()
+    from repro_torch.launch import dryrun_gnn, mesh
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_gnn.run(8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_gnn.main(["--multi-pod"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.init_fake_world(8)
