@@ -204,17 +204,35 @@ the run with a non-zero exit and no result line):
               summed in another order) must have a margin p_j - p_(j+1)
               below 1e-5, its row leaves the comparison, and all rows but
               one must agree.
+  lm-dryrun   the transformer pod dry run. In a child process, a 1-rank
+              NCCL group and a (1, 1) ("data", "model") mesh: one train
+              step and the prefill logits of qwen2-1.5b at full width, 2
+              layers, f32, its parameters, AdamW state and batch placed as
+              DTensors by launch/sharding.py with the sharding hints and
+              the FSDP gather active, against the same step on plain
+              tensors: loss, logits and every parameter bitwise. Then
+              python -m repro_torch.launch.dryrun --device cuda for each
+              combo of LM_DRYRUNS, all at once (a train, a prefill and
+              decode combos; both meshes; MoE): rank 0 of a fake 256- or
+              512-rank world traces the step on meta tensors. Per record:
+              status, argument/output/temp bytes, rank 0's FLOPs and the
+              whole mesh's, the census; gates status ok, the census equal
+              to CommDebugMode's (above 0 for a train step), the argument
+              bytes equal to the closed form from the specs and global
+              shapes (rank 0's torch.chunk share of each leaf), and no
+              kernel launched.
   llm-dense   phase 7 with qwen2-1.5b at its published size (28 layers,
-              bf16, random weights): the same 64 prompts and measurements;
+              bf16, random weights): 32 prompts (half phase 7's 64, so
+              the whole run stays within 560 s) and the same measurements;
               gates zero launches of every kernel (the dense path runs no
               TPU kernel).
   llm-moe     phase 7 with deepseek-moe-16b at its published size (28
               layers, 64 routed experts top-6 + 2 shared, bf16, 31.4 GiB):
-              32 prompts, the same measurements, each layer's MoEStats
+              16 prompts, the same measurements, each layer's MoEStats
               (HopMoE mode, dispatch and weight bytes, dropped share) at
               the largest prefill bucket and at decode; zero launches.
   llm-hybrid  the same with recurrentgemma-9b (38 layers: 12 periods of
-              rec, rec, attn and two rec; MQA, head dim 256, bf16): 32
+              rec, rec, attn and two rec; MQA, head dim 256, bf16): 16
               prompts of 128..3,072 tokens, past its 2,048-token local
               window; zero launches.
   llm-mm      generate() at the published size on pixtral-12b (2 x 1,024
@@ -242,7 +260,8 @@ the run with a non-zero exit and no result line):
 Output: one line per measurement; then the kernels' JSON line (launches
 summed over the paths, per path under ``launches_by_path`` (the dry
 runs' as gnn_dryrun_256 and gnn_dryrun_512, counted in their own
-processes over the measured call), the
+processes over the measured call, and the transformer's as lm_dryrun,
+the (1, 1) step's and each record's launches), the
 transformer phases' paths with 0 where no kernel runs; gather_agg's
 timings at the P3 shape, every shape's under ``shapes``; with --world
 N, the mesh phase's summary instead), the card's name and power limit,
@@ -251,8 +270,9 @@ and last ``{"ok": true, "device": {...}}``.
     python3 chip_smoke.py [--requests 4096] [--qps 1000] [--seed 0]
     python3 chip_smoke.py --world 4        # on four cards
     python3 chip_smoke.py --lm-only        # build, linattn, phases 6, 7,
-                                           # lm-wide, llm-dense, llm-moe,
-                                           # llm-hybrid, llm-mm, lm-train
+                                           # lm-wide, lm-dryrun, llm-dense,
+                                           # llm-moe, llm-hybrid, llm-mm,
+                                           # lm-train
 """
 from __future__ import annotations
 
@@ -304,6 +324,7 @@ from repro_torch.models.gnn.models import model_param_bytes  # noqa: E402
 from repro_torch.models.transformer import (decode_step,  # noqa: E402
                                             forward, forward_hidden,
                                             init_params, prefill)
+from repro_torch.models.transformer.model import _head_matrix  # noqa: E402
 from repro_torch.models.transformer.moe import (_alpha_mode,  # noqa: E402
                                                 moe_capacity)
 from repro_torch.obs import trace  # noqa: E402
@@ -407,7 +428,10 @@ RWKV_TRAIN_LAYERS = 8  # of 32: params, grads and f32 moments of all 32
 MOE_TRAIN_LAYERS = 4   # of deepseek-moe-16b's 28 (about 2.8B parameters):
 #                        all 28 with f32 moments would take about 200 GB
 MM_VLM_BATCH = 2       # pixtral-12b prompts of 1,024 patches + 3,072 tokens
-NEW_LLM_PROMPTS = 32   # prompts served in [llm-moe] and [llm-hybrid]
+NEW_LLM_PROMPTS = 16   # prompts served in [llm-moe] and [llm-hybrid] (32
+#                        until [lm-dryrun] joined the run)
+DENSE_LLM_PROMPTS = 32     # [llm-dense]: half phase 7's 64, so the whole
+#                            run, [lm-dryrun] included, stays within 560 s
 HYBRID_MAX_PROMPT = 3072   # [llm-hybrid]: prompts past the 2,048 window
 
 
@@ -2448,6 +2472,109 @@ def phase_mesh(world: int, seed: int) -> dict:
     return summary
 
 
+LM_MESH_TOL = 1e-5     # sharded vs one-card step, share of a leaf's max
+LM_MESH_LR = 0.1       # SGD: the parameters after the step hold the grads
+
+
+def lm_mesh_rank_main(rank: int, world: int, seed: int, base: str,
+                      device: str = "cuda", backend: str = "nccl") -> None:
+    """[lm-mesh], one rank of a (2, world/2) ("data", "model") mesh: the
+    2-layer full-width f32 qwen2-1.5b step (SGD, so the parameters after
+    it hold the gradient to the same bound; AdamW's first step divides by
+    each element's own |g|) and its prefill logits, placed by
+    launch/sharding.py, against the same step on plain tensors on this
+    rank's card; rank 0 writes each share of a leaf's largest |value|."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.transformer.common import set_mesh_axes
+    from repro_torch.optim import sgd
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+        os.environ["LOCAL_RANK"] = str(rank)
+    dist.init_process_group(
+        backend, store=dist.FileStore(os.path.join(base, "lm_store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh(device, (2, world // 2),
+                                mesh_dim_names=("data", "model"))
+        set_mesh_axes(dp=("data",), tp=("model",))
+        cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=2,
+                                  dtype="float32")
+        g = torch.Generator(device=device).manual_seed(seed)
+        params = init_params(cfg, g, device)
+        for layer in params["layers"]:
+            for w in ("wq", "wk", "wv"):
+                b = layer["attn"][w]["b"]
+                b.copy_(0.1 * torch.randn(b.shape, generator=g,
+                                          device=device))
+        batch = {k: v.to(device)
+                 for k, v in make_batch(cfg, 4, 512, seed).items()}
+        opt = sgd(LM_MESH_LR)
+        step = make_train_step(cfg, opt)
+
+        def logits(p, b):
+            with torch.no_grad():
+                x, _ = forward_hidden(p, cfg, b)
+                return x[:, -1] @ _head_matrix(p)
+
+        def full(t):
+            return t.full_tensor() if isinstance(t, DTensor) else t
+
+        def share_of(got, want):
+            got, want = full(got).detach().float(), want.detach().float()
+            return float((got - want).abs().max() / want.abs().max())
+
+        plain = copy.deepcopy(params)
+        want_logits = logits(plain, batch)
+        plain, _, m_plain = step(plain, opt.init(plain), batch)
+        specs = shd.param_pspecs(params)
+        d_params = shd.distribute(mesh, copy.deepcopy(params), specs)
+        d_batch = shd.distribute(mesh, batch,
+                                 shd.batch_pspecs(cfg, mesh, batch))
+        with implicit_replication():
+            got_logits = logits(d_params, d_batch)
+            d_params, _, m = step(d_params, opt.init(params), d_batch)
+        leaves = [share_of(a, b) for a, b in zip(tree_leaves(d_params),
+                                                 tree_leaves(plain))]
+        res = dict(loss=share_of(m["loss"], m_plain["loss"]),
+                   logits=share_of(got_logits, want_logits),
+                   worst_leaf=max(leaves), leaves=len(leaves),
+                   loss_value=float(m_plain["loss"]),
+                   mesh=list(mesh.shape))
+        if rank == 0:
+            with open(os.path.join(base, "lm_mesh.json"), "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_lm_mesh(world: int, seed: int) -> dict:
+    """[lm-mesh] at world size > 1: the transformer step over a real
+    (2, world/2) NCCL mesh against the one-card step, within LM_MESH_TOL
+    of each leaf's largest |value| (loss, prefill logits, every parameter
+    after the step)."""
+    import torch.multiprocessing as tmp
+    base = os.path.join(ROOT, "build", "chip_smoke_lm_mesh")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    t0 = time.perf_counter()
+    tmp.spawn(lm_mesh_rank_main, args=(world, seed, base), nprocs=world,
+              join=True)
+    with open(os.path.join(base, "lm_mesh.json")) as f:
+        res = json.load(f)
+    log("lm-mesh", f"qwen2-1.5b 2 layers f32 on a {res['mesh']} NCCL mesh "
+                   f"vs one card: loss {res['loss_value']:.6f} (share "
+                   f"{res['loss']:.3e}), prefill logits {res['logits']:.3e}"
+                   f", worst of {res['leaves']} parameters after an SGD "
+                   f"step {res['worst_leaf']:.3e} (bound {LM_MESH_TOL}); "
+                   f"{time.perf_counter() - t0:.1f} s; {card_line()}")
+    if max(res["loss"], res["logits"], res["worst_leaf"]) > LM_MESH_TOL:
+        raise AssertionError(f"[lm-mesh] the sharded step differs: {res}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # [dryrun]: LeapGNN's pod dry run, rank 0 of 256 and 512 shards
 # ---------------------------------------------------------------------------
@@ -2603,6 +2730,278 @@ def phase_dryrun(seed: int) -> dict:
     dryrun_card_vs_cpu(seed)
     log("dryrun", f"phase done in {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# [lm-dryrun]: the transformer pod dry run, and its placements on the card
+# ---------------------------------------------------------------------------
+
+# One train step and the prefill logits of qwen2-1.5b at full width, 2
+# layers, f32, on a 1-rank group: the parameters, AdamW's state and the
+# batch placed by launch/sharding.py as DTensors on a (1, 1) ("data",
+# "model") mesh with the hints and the FSDP gather active, against the same
+# step on plain tensors. argv: device, backend, seed, out.pt
+_LM_MESH1 = """
+import copy, dataclasses, json, os, sys
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.configs import get_config
+from repro_torch.data import make_batch
+from repro_torch.kernels import gather_agg, linattn
+from repro_torch.launch import sharding as shd
+from repro_torch.launch.train import make_train_step, pick_optimizer
+from repro_torch.models.transformer import init_params
+from repro_torch.models.transformer.common import set_mesh_axes
+from repro_torch.models.transformer.model import _head_matrix, forward_hidden
+from repro_torch.optim import tree_leaves
+device, backend, seed, out = sys.argv[1], sys.argv[2], int(sys.argv[3]), \\
+    sys.argv[4]
+dist.init_process_group(backend, init_method="file://" + out + ".rdv",
+                        rank=0, world_size=1)
+mesh = init_device_mesh(device, (1, 1), mesh_dim_names=("data", "model"))
+set_mesh_axes(dp=("data",), tp=("model",))
+cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=2,
+                          dtype="float32")
+g = torch.Generator(device=device).manual_seed(seed)
+params = init_params(cfg, g, device)
+for layer in params["layers"]:
+    for w in ("wq", "wk", "wv"):
+        b = layer["attn"][w]["b"]
+        b.copy_(0.1 * torch.randn(b.shape, generator=g, device=device))
+batch = {k: v.to(device) for k, v in make_batch(cfg, 4, 512, seed).items()}
+opt = pick_optimizer(cfg)
+step = make_train_step(cfg, opt)
+
+def logits(p, b):
+    with torch.no_grad():
+        x, _ = forward_hidden(p, cfg, b)
+        return x[:, -1] @ _head_matrix(p)
+
+def full(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+launched = {**gather_agg.launches, **linattn.launches}
+plain = copy.deepcopy(params)
+want_logits = logits(plain, batch)
+plain, _, m_plain = step(plain, opt.init(plain), batch)
+specs = shd.param_pspecs(params)
+d_params = shd.distribute(mesh, copy.deepcopy(params), specs)
+state = opt.init(params)
+d_state = shd.distribute_opt_state(mesh, state, shd.opt_pspecs(state, specs))
+d_batch = shd.distribute(mesh, batch, shd.batch_pspecs(cfg, mesh, batch))
+with implicit_replication():
+    got_logits = logits(d_params, d_batch)
+    d_params, _, m = step(d_params, d_state, d_batch)
+got, want = [full(t) for t in tree_leaves(d_params)], tree_leaves(plain)
+res = dict(
+    logits=bool(torch.equal(full(got_logits), want_logits)),
+    loss=bool(torch.equal(full(m["loss"]), m_plain["loss"])),
+    params=[bool(torch.equal(a, b)) for a, b in zip(got, want)],
+    worst=max(float((a - b).abs().max()) for a, b in zip(got, want)),
+    logit_err=float((full(got_logits) - want_logits).abs().max()),
+    loss_value=float(m_plain["loss"]),
+    dtensors=sum(isinstance(t, DTensor) for t in tree_leaves(d_params)),
+    launches={k: v - launched[k]
+              for k, v in {**gather_agg.launches,
+                           **linattn.launches}.items()})
+dist.destroy_process_group()
+torch.save(res, out)
+"""
+
+# The dry runs [lm-dryrun] runs, each its own process and all at once:
+# (arch, shape, meshes). A train, a prefill and decodes, both meshes, MoE
+# and every kind of cache; the cheapest train (whisper-base) keeps the
+# phase near 35 s on an H100 host (PERF.md section 4)
+LM_DRYRUNS = (("whisper-base", "train_4k", ("16x16",)),
+              ("deepseek-moe-16b", "prefill_32k", ("16x16",)),
+              ("qwen2-1.5b", "decode_32k", ("16x16", "2x16x16")),
+              ("qwen2-moe-a2.7b", "decode_32k", ("2x16x16",)),
+              ("rwkv6-7b", "decode_32k", ("16x16",)),
+              ("recurrentgemma-9b", "decode_32k", ("16x16",)))
+LM_DRYRUN_TIMEOUT_S = 240
+
+
+def lm_mesh1_check(seed: int, fails: list) -> dict:
+    """The (1, 1) NCCL step against the plain one: loss, logits and every
+    parameter after the step bitwise. Returns its kernel launches."""
+    base = os.path.join(ROOT, "build", "chip_smoke_lm_dryrun")
+    os.makedirs(base, exist_ok=True)
+    saved = os.path.join(base, "mesh1.pt")
+    for f in (saved, saved + ".rdv"):
+        if os.path.exists(f):
+            os.unlink(f)
+    t0 = time.perf_counter()
+    run_python(["-c", _LM_MESH1, "cuda", "nccl", str(seed), saved],
+               "the (1, 1) mesh step")
+    res = torch.load(saved)
+    same = all(res["params"]) and res["logits"] and res["loss"]
+    log("lm-dryrun", f"qwen2-1.5b 2 layers f32 on a (1, 1) NCCL mesh, "
+                     f"{res['dtensors']} DTensor leaves placed by "
+                     f"param_pspecs (FSDP on), hints active: loss "
+                     f"{res['loss_value']:.6f} bitwise {res['loss']}, "
+                     f"prefill logits bitwise {res['logits']} (max abs err "
+                     f"{res['logit_err']:.3e}), parameters after the AdamW "
+                     f"step bitwise {sum(res['params'])} of "
+                     f"{len(res['params'])} (worst {res['worst']:.3e}); "
+                     f"launches {res['launches']}; process "
+                     f"{time.perf_counter() - t0:.1f} s")
+    if not same:
+        fails.append(f"(1, 1) mesh step not bitwise the plain step: {res}")
+    return res["launches"]
+
+
+def rank0_bytes(tree, specs, mesh) -> int:
+    """Rank 0's bytes of a tree of tensors placed by specs (a tree of the
+    same structure): each sharded dim cut to its first torch.chunk piece,
+    axis by axis in mesh order."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    order = list(mesh.mesh_dim_names)
+    if isinstance(tree, torch.Tensor):
+        shape = list(tree.shape)
+        for d, entry in enumerate(specs or ()):
+            axes = (entry,) if isinstance(entry, str) else (entry or ())
+            for a in sorted(axes, key=order.index):
+                shape[d] = min(shape[d], -(-shape[d] // sizes[a]))
+        return int(np.prod(shape)) * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(rank0_bytes(v, specs[k], mesh) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return sum(rank0_bytes(v, s, mesh) for v, s in zip(tree, specs))
+    return 0
+
+
+def closed_form_arguments(arch: str, shape: str, multi_pod: bool) -> int:
+    """Rank 0's argument bytes of a dry-run combo from the specs and the
+    global shapes alone."""
+    from repro_torch.configs import SHAPES, input_specs
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.transformer import init_decode_state
+    cfg = get_config(arch)
+    mesh = shd.production_mesh_shape(multi_pod)
+    params = init_params(cfg, device="meta")
+    p_specs = shd.param_pspecs(params)
+    data = input_specs(cfg, shape)
+    sh = SHAPES[shape]
+    total = rank0_bytes(params, p_specs, mesh)
+    if sh.kind == "train":
+        state = pick_optimizer(cfg).init(params)
+        o_specs = shd.opt_pspecs(state, p_specs)
+        total += rank0_bytes(state.mu, o_specs.mu, mesh) \
+            + rank0_bytes(state.nu, o_specs.nu, mesh) \
+            + state.step.numel() * state.step.element_size()
+    if sh.kind in ("train", "prefill"):
+        return total + rank0_bytes(data, shd.batch_pspecs(cfg, mesh, data),
+                                   mesh)
+    B, S = sh.global_batch, sh.seq_len
+    if cfg.family == "audio":
+        De = cfg.encoder_d_model or cfg.d_model
+        enc = torch.empty((B, cfg.encoder_seq, De),
+                          dtype=cfg.activation_dtype, device="meta")
+        with torch.no_grad():
+            state = init_decode_state(cfg, B, S, enc=enc, params=params)
+    else:
+        state = init_decode_state(cfg, B, S, device="meta")
+    return total + rank0_bytes(data["token"], (shd.dp_for_batch(mesh, B),),
+                               mesh) \
+        + rank0_bytes(state, shd.decode_state_pspecs(cfg, mesh, state),
+                      mesh)
+
+
+def phase_lm_dryrun(seed: int) -> dict:
+    """[lm-dryrun]: the listed dry runs as processes of their own, all
+    started together, and while they trace, the (1, 1) mesh step on the
+    card. Each record is gated: status ok, the census equal to
+    CommDebugMode's (and above 0 for a train step), the argument bytes
+    equal to the closed form, no kernel launched. Returns the phase's
+    kernel launches."""
+    fails: list = []
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_lm_dryrun")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+           if p]), OMP_NUM_THREADS="1")
+    procs = []
+    t0 = time.perf_counter()
+    for arch, shape, meshes in LM_DRYRUNS:
+        for mesh in meshes:
+            name = f"{arch}.{shape}.{mesh}.json"
+            if os.path.exists(os.path.join(out_dir, name)):
+                os.unlink(os.path.join(out_dir, name))
+            args = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--arch", arch, "--shape", shape, "--device", "cuda",
+                    "--results-dir", out_dir] \
+                + (["--multi-pod"] if mesh == "2x16x16" else [])
+            procs.append((arch, shape, mesh, time.perf_counter(),
+                          subprocess.Popen(args, cwd=ROOT, env=env,
+                                           stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE,
+                                           text=True)))
+    launched = lm_mesh1_check(seed, fails)
+    for arch, shape, mesh, t_start, proc in procs:
+        try:
+            stdout, stderr = proc.communicate(
+                timeout=max(1.0, LM_DRYRUN_TIMEOUT_S
+                            - (time.perf_counter() - t_start)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fails.append(f"{arch} × {shape} × {mesh}: past "
+                         f"{LM_DRYRUN_TIMEOUT_S} s")
+            continue
+        wall = time.perf_counter() - t_start
+        path = os.path.join(out_dir, f"{arch}.{shape}.{mesh}.json")
+        if proc.returncode != 0 or not os.path.exists(path):
+            fails.append(f"{arch} × {shape} × {mesh} exited "
+                         f"{proc.returncode}: {stdout[-1000:]}"
+                         f"{stderr[-2000:]}")
+            continue
+        rec = json.loads(open(path).read())
+        if rec["status"] != "ok":
+            fails.append(f"{arch} × {shape} × {mesh}: {rec['status']} "
+                         f"{rec.get('error', '')}")
+            continue
+        mem, coll = rec["memory"], rec["collectives"]
+        want_args = closed_form_arguments(arch, shape, mesh == "2x16x16")
+        for k, v in rec["launches"].items():
+            launched[k] = launched.get(k, 0) + v
+        log("lm-dryrun", f"[{rec['status']}] {arch} × {shape} × {mesh} "
+                         f"(process {wall:.1f} s, traced step "
+                         f"{rec['compile_seconds']} s): argument "
+                         f"{mem['argument_size_in_bytes']} B (closed form "
+                         f"{want_args}), output "
+                         f"{mem['output_size_in_bytes']} B, temp "
+                         f"{mem['temp_size_in_bytes']} B; flops (rank 0) "
+                         f"{rec['flops']:.6g}, flops_global "
+                         f"{rec['flops_global']:.6g}; census "
+                         f"{coll['count_by_op']} {coll['bytes_by_op']} B, "
+                         f"CommDebugMode {rec['comm_debug_counts']}; "
+                         f"launches {rec['launches']}")
+        checks = {
+            "census = CommDebugMode":
+                coll["count_by_op"] == rec["comm_debug_counts"],
+            "census above 0 for a train step":
+                shape != "train_4k" or (
+                    coll["count_by_op"]
+                    and all(n > 0 for n in coll["count_by_op"].values())),
+            "argument bytes = closed form":
+                mem["argument_size_in_bytes"] == want_args,
+            "no kernel launched": not any(rec["launches"].values()),
+        }
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            fails.append(f"{arch} × {shape} × {mesh}: {bad}")
+    log("lm-dryrun", f"{len(procs)} dry runs in {time.perf_counter() - t0:.1f}"
+                     f" s (all at once); kernel launches on the path "
+                     f"{launched}; {card_line()}")
+    if any(launched.values()):
+        fails.append(f"a kernel was launched on the dry-run path: "
+                     f"{launched}")
+    if fails:
+        raise AssertionError(f"[lm-dryrun] failed: {fails}")
+    return launched
 
 
 # ---------------------------------------------------------------------------
@@ -3357,8 +3756,9 @@ def main() -> int:
                          "only the build and [mesh] run")
     ap.add_argument("--lm-only", action="store_true",
                     help="run only the build, the linattn kernel check and "
-                         "the transformer phases (6, 7, lm-wide, llm-dense, "
-                         "llm-moe, llm-hybrid, llm-mm, lm-train)")
+                         "the transformer phases (6, 7, lm-wide, lm-dryrun, "
+                         "llm-dense, llm-moe, llm-hybrid, llm-mm, "
+                         "lm-train)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3374,12 +3774,14 @@ def main() -> int:
     phase_build()
     if args.world > 1:
         summary = phase_mesh(args.world, args.seed)
+        lm_mesh = phase_lm_mesh(args.world, args.seed)
         if summary["gather_agg_launches"]:
             raise AssertionError(f"the sharded fit launched gather_agg: "
                                  f"{summary['gather_agg_launches']}")
-        log("done", f"build and [mesh] at world size {args.world} passed in "
+        log("done", f"build, [mesh] and [lm-mesh] at world size {args.world} "
+                    f"passed in "
                     f"{time.perf_counter() - t_all:.1f} s")
-        print(json.dumps({"mesh": summary}))
+        print(json.dumps({"mesh": summary, "lm_mesh": lm_mesh}))
         print(card_line())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3427,8 +3829,10 @@ def main() -> int:
     flips: list = []
     for tag, fn in (
             ("lm-wide", lambda: flips.extend(phase_lm_wide(args.seed))),
+            ("lm-dryrun", lambda: record("lm_dryrun",
+                                         phase_lm_dryrun(args.seed))),
             ("llm-dense", lambda: record("llm_dense_serve", phase_llm(
-                args.seed, "qwen2-1.5b", "llm-dense"))),
+                args.seed, "qwen2-1.5b", "llm-dense", DENSE_LLM_PROMPTS))),
             ("llm-moe", lambda: record("llm_moe_serve", phase_llm(
                 args.seed, "deepseek-moe-16b", "llm-moe", NEW_LLM_PROMPTS))),
             ("llm-hybrid", lambda: record("llm_hybrid_serve", phase_llm(

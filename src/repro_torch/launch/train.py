@@ -17,12 +17,14 @@ unless told otherwise:
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import init_params, loss_fn
+from repro_torch.models.transformer.common import _dtensor
 from repro_torch.models.transformer.config import ArchConfig
 from repro_torch.optim import Optimizer, adamw, leaves
 
@@ -61,6 +63,31 @@ def _with_leaves(node, it):
     return next(it)
 
 
+def _microbatch(v: torch.Tensor, accum: int, i: int) -> torch.Tensor:
+    """Rows [i·B/accum, (i+1)·B/accum) of v. A DTensor whose batch dim
+    is sharded is gathered over it first (DTensor cannot split a sharded
+    batch into (accum, B/accum) when accum does not divide into the
+    shards; GSPMD moves the rows with an all-to-all), and the microbatch
+    sharded as v was over as many of those mesh axes as its rows divide
+    into, the outermost dropped first (the reference's ``dp_for_batch``:
+    16 rows over ("pod", "data") shard over "data" alone)."""
+    mb_rows = v.shape[0] // accum
+    if _dtensor(v) and any(pl.is_shard() and pl.dim == 0
+                           for pl in v.placements):
+        from torch.distributed.tensor import Replicate
+        mesh, placements = v.device_mesh, list(v.placements)
+        whole = v.redistribute(mesh, [
+            Replicate() if pl.is_shard() and pl.dim == 0 else pl
+            for pl in placements])
+        mb = whole.reshape(accum, mb_rows, *v.shape[1:])[i]
+        dims = [d for d, pl in enumerate(placements)
+                if pl.is_shard() and pl.dim == 0]
+        while dims and mb_rows % math.prod(mesh.size(d) for d in dims):
+            placements[dims.pop(0)] = Replicate()
+        return mb.redistribute(mesh, placements)
+    return v.reshape(accum, mb_rows, *v.shape[1:])[i]
+
+
 def value_and_grad(params, cfg: ArchConfig, batch: dict):
     """(loss, {"ce", "aux"}, grads): grads a list aligned with
     ``leaves(params)``, each in its parameter's dtype (zeros for a leaf the
@@ -84,8 +111,7 @@ def accumulated_grads(params, cfg: ArchConfig, batch: dict, accum: int = 1):
         return value_and_grad(params, cfg, batch)
 
     def slice_mb(i):
-        return {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
-                for k, v in batch.items()}
+        return {k: _microbatch(v, accum, i) for k, v in batch.items()}
     dev = params["embed"].device
     loss = torch.zeros((), device=dev)
     parts = {"ce": torch.zeros((), device=dev),

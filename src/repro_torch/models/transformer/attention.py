@@ -18,18 +18,21 @@ where the reference asks XLA for float32 products of its bf16 operands
 (``preferred_element_type``), the port upcasts the operands of each chunk's
 products (a bf16 product is exact in float32) and keeps q, k and v in their
 storage dtype. GQA heads are grouped in the einsum, never repeated into
-memory. The reference's ``shard`` annotations have no counterpart on one
-card.
+memory. The reference's ``shard`` hints stand where it has them: no-ops
+on plain tensors, redistributions of DTensors (``common.shard``); the
+projections split into heads through ``common.split_heads``.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.transformer.common import (apply_rope, init_linear,
-                                                   linear)
+from repro_torch.models.transformer.common import (
+    _dtensor, apply_rope, from_local_shards, init_linear, linear,
+    merge_heads, shard, split_heads, to_local_shards, tp_size)
 
 
 def _repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
@@ -41,6 +44,26 @@ def _repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
         b, s, k * groups, d)
 
 
+def _attend_full_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       **kw) -> torch.Tensor:
+    """:func:`attend_full` of DTensors on this rank's shards: the batch
+    over dp, the heads over TP where the H query heads divide into its
+    shards (else every TP rank attends with all of them), the sequence
+    whole. When the K kv heads do not divide into the shards, each is
+    repeated r = n / gcd(K, n) times first (the reference's
+    ``kv_tp_repeat``, where GSPMD pads instead); values do not change, as
+    q head h reads kv head h // (H/K) either way."""
+    n = tp_size(q.device_mesh)
+    heads = "tp" if q.shape[2] % n == 0 else None
+    kh = k.shape[2]
+    if heads and kh % n:
+        r = n // math.gcd(kh, n)
+        k, v = _repeat_kv(k, r), _repeat_kv(v, r)
+    spec = ("dp", None, heads, None)
+    out = attend_full(*(to_local_shards(t, *spec) for t in (q, k, v)), **kw)
+    return from_local_shards(out, q.device_mesh, q.shape, *spec)
+
+
 def attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 *, causal: bool = True, window: Optional[int] = None,
                 q_offset: int = 0, kv_chunk: int = 1024) -> torch.Tensor:
@@ -50,7 +73,11 @@ def attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``kv_chunk`` (the last one padded and the padding masked); causal and
     window masks are applied per chunk, masked scores set to -1e30 and the
     running max started at -inf, as in the reference. ``q_offset`` is the
-    absolute position of q[0] relative to k[0] (prefill continuation)."""
+    absolute position of q[0] relative to k[0] (prefill continuation).
+    DTensors attend on each rank's shards (:func:`_attend_full_local`)."""
+    if _dtensor(q):
+        return _attend_full_local(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset, kv_chunk=kv_chunk)
     b, sq, h, dh = q.shape
     skv, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -129,6 +156,10 @@ def attend_decode(q: torch.Tensor, cache: KVCache, *,
     are grouped in the einsum."""
     b, _, h, dh = q.shape
     length, kh = cache.k.shape[1], cache.k.shape[2]
+    # a DTensor q is gathered over TP (one token's query): the products
+    # below merge the batch with the kv heads, and DTensor cannot merge a
+    # head dim sharded after the batch's
+    q = shard(q, "dp", None, None, None)
     g = h // kh
     scale = dh ** -0.5
     q5 = q.reshape(b, kh, g, dh).float()
@@ -166,18 +197,21 @@ def attn_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     """Self-attention over a full sequence (train / prefill)."""
     b, s, _ = x.shape
     dh, H, K = cfg.hdim, cfg.num_heads, cfg.num_kv_heads
-    q = linear(p["wq"], x).reshape(b, s, H, dh)
-    k = linear(p["wk"], x).reshape(b, s, K, dh)
-    v = linear(p["wv"], x).reshape(b, s, K, dh)
+    q = split_heads(linear(p["wq"], x), H, dh)
+    k = split_heads(linear(p["wk"], x), K, dh)
+    v = split_heads(linear(p["wv"], x), K, dh)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if cfg.kv_tp_repeat > 1:
-        # the reference repeats the KV heads so they shard on one TP axis;
-        # it changes no value
+        # replicate KV heads so the grouped attention shards cleanly on a
+        # single (K·rep)-sized head axis across TP; it changes no value
         k = _repeat_kv(k, cfg.kv_tp_repeat)
         v = _repeat_kv(v, cfg.kv_tp_repeat)
+        k = shard(k, "dp", None, "tp", None)
+        v = shard(v, "dp", None, "tp", None)
+        q = shard(q, "dp", None, "tp", None)
     o = attend_full(q, k, v, causal=True, window=window, kv_chunk=kv_chunk)
-    return linear(p["wo"], o.reshape(b, s, H * dh))
+    return linear(p["wo"], merge_heads(o))
 
 
 def attn_decode(p: dict, cfg, x: torch.Tensor, cache: KVCache,
@@ -187,11 +221,11 @@ def attn_decode(p: dict, cfg, x: torch.Tensor, cache: KVCache,
     dh, H, K = cfg.hdim, cfg.num_heads, cfg.num_kv_heads
     pos = torch.full((b, 1), cache.pos, dtype=torch.int32,
                      device=x.device)                       # absolute position
-    q = linear(p["wq"], x).reshape(b, 1, H, dh)
-    k = linear(p["wk"], x).reshape(b, 1, K, dh)
-    v = linear(p["wv"], x).reshape(b, 1, K, dh)
+    q = split_heads(linear(p["wq"], x), H, dh)
+    k = split_heads(linear(p["wk"], x), K, dh)
+    v = split_heads(linear(p["wv"], x), K, dh)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     cache = cache_append(cache, k, v)
     o = attend_decode(q, cache, window=window)
-    return linear(p["wo"], o.reshape(b, 1, H * dh)), cache
+    return linear(p["wo"], merge_heads(o)), cache

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from repro_torch.models.transformer.attention import (
     KVCache, attend_decode, attend_full, cache_append, init_kv_cache)
 from repro_torch.models.transformer.common import (
-    init_layernorm, init_linear, layernorm, linear)
+    init_layernorm, init_linear, layernorm, linear, merge_heads, split_heads)
 
 
 def _init_mha(generator: torch.Generator, d_model: int, dtype,
@@ -38,11 +38,11 @@ def _mha(p: dict, x_q: torch.Tensor, x_kv: torch.Tensor, heads: int,
          causal: bool) -> torch.Tensor:
     b, sq, d = x_q.shape
     dh = d // heads
-    q = linear(p["wq"], x_q).reshape(b, sq, heads, dh)
-    k = linear(p["wk"], x_kv).reshape(b, x_kv.shape[1], heads, dh)
-    v = linear(p["wv"], x_kv).reshape(b, x_kv.shape[1], heads, dh)
+    q = split_heads(linear(p["wq"], x_q), heads, dh)
+    k = split_heads(linear(p["wk"], x_kv), heads, dh)
+    v = split_heads(linear(p["wv"], x_kv), heads, dh)
     o = attend_full(q, k, v, causal=causal)
-    return linear(p["wo"], o.reshape(b, sq, d))
+    return linear(p["wo"], merge_heads(o))
 
 
 def _ffn(p: dict, h: torch.Tensor) -> torch.Tensor:
@@ -100,10 +100,8 @@ def init_decoder_cache(p: dict, enc: torch.Tensor, batch: int, max_seq: int,
     """An empty self-attention cache of ``max_seq`` slots and the layer's
     cross-attention keys and values of ``enc``."""
     dh = d_model // heads
-    k = linear(p["cross_attn"]["wk"], enc).reshape(batch, enc.shape[1],
-                                                   heads, dh)
-    v = linear(p["cross_attn"]["wv"], enc).reshape(batch, enc.shape[1],
-                                                   heads, dh)
+    k = split_heads(linear(p["cross_attn"]["wk"], enc), heads, dh)
+    v = split_heads(linear(p["cross_attn"]["wv"], enc), heads, dh)
     return DecLayerCache(
         self_kv=init_kv_cache(batch, max_seq, heads, dh, dtype,
                               device=enc.device),
@@ -116,21 +114,21 @@ def decoder_layer_decode(p: dict, x: torch.Tensor, cache: DecLayerCache,
     b, _, d = x.shape
     dh = d // heads
     h = layernorm(p["ln1"], x)
-    q = linear(p["self_attn"]["wq"], h).reshape(b, 1, heads, dh)
-    k = linear(p["self_attn"]["wk"], h).reshape(b, 1, heads, dh)
-    v = linear(p["self_attn"]["wv"], h).reshape(b, 1, heads, dh)
+    q = split_heads(linear(p["self_attn"]["wq"], h), heads, dh)
+    k = split_heads(linear(p["self_attn"]["wk"], h), heads, dh)
+    v = split_heads(linear(p["self_attn"]["wv"], h), heads, dh)
     self_kv = cache_append(cache.self_kv, k, v)
     o = attend_decode(q, self_kv)
-    x = x + linear(p["self_attn"]["wo"], o.reshape(b, 1, d))
+    x = x + linear(p["self_attn"]["wo"], merge_heads(o))
 
     hx = layernorm(p["ln_x"], x)
-    q = linear(p["cross_attn"]["wq"], hx).reshape(b, 1, heads, dh)
+    q = split_heads(linear(p["cross_attn"]["wq"], hx), heads, dh)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * dh ** -0.5,
                      cache.cross_k.float())
     pzn = torch.softmax(s, -1)
     o = torch.einsum("bhqk,bkhd->bqhd", pzn,
                      cache.cross_v.float()).to(x.dtype)
-    x = x + linear(p["cross_attn"]["wo"], o.reshape(b, 1, d))
+    x = x + linear(p["cross_attn"]["wo"], merge_heads(o))
 
     x = x + _ffn(p, layernorm(p["ln2"], x))
     return x, DecLayerCache(self_kv=self_kv, cross_k=cache.cross_k,

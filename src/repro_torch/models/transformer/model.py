@@ -27,26 +27,36 @@ hybrid's whole period) run as a Python loop, each under
 ``caches`` mirror them: a ``KVCache`` per dense, moe or vlm layer, an
 ``RWKVState`` per RWKV6 layer, ``{"blocks": [...]}`` of ``RGLRUState`` and
 ``KVCache`` per hybrid period (and ``tail``), a ``DecLayerCache`` per
-audio decoder layer (and ``enc``). The reference's dry-run knobs
-(``set_remat_policy``, ``set_scan_unroll``, ``set_sequence_sharding``)
-belong to its GSPMD programs and have no counterpart here (Queue 1 item
-13).
+audio decoder layer (and ``enc``).
+
+The reference's dry-run knobs: ``set_sequence_sharding`` (the carry's
+sequence over the TP axis at layer boundaries, ``_carry_shard``) and
+``set_remat_policy`` (``"full"``, or ``"dots"``: matmul outputs saved by a
+selective checkpoint) act here too, and ``scan_length`` is the reference's
+count of layer iterations, kept for the dry run's record. The ``shard``
+hints stand where the reference has them and act only on DTensors
+(``common.shard``). ``set_scan_unroll`` has no counterpart: the layers are
+a Python loop, so every layer's FLOPs are counted as it runs.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import encdec
 from repro_torch.models.transformer.attention import (
     KVCache, attn_decode, attn_forward, init_attn, init_kv_cache)
 from repro_torch.models.transformer.common import (
-    apply_rope, init_linear, init_rmsnorm, layernorm, linear, rmsnorm)
+    _dtensor, apply_rope, from_local_shards, gather_fsdp, gather_sequence,
+    init_linear, init_rmsnorm, layernorm, linear, rmsnorm, shard,
+    split_heads, to_local_shards)
 from repro_torch.models.transformer.config import ArchConfig
 from repro_torch.models.transformer.mlp import init_mlp, mlp_forward
 from repro_torch.models.transformer.moe import init_moe, moe_forward
@@ -70,12 +80,66 @@ class DecodeState(NamedTuple):
     enc: Any = None         # audio: the encoder's output
 
 
+# Sequence parallelism (Korthikanti et al.): shard the residual stream's
+# *sequence* dim over the model axis at layer boundaries. The saved carries
+# of the checkpointed layers then shard over tp, and the gather before
+# attention is the sequence-parallel collective. A no-op on plain tensors.
+_SEQ_SHARD = [True]
+
+
+def set_sequence_sharding(on: bool) -> None:
+    _SEQ_SHARD[0] = bool(on)
+
+
+def _carry_shard(x):
+    if _SEQ_SHARD[0]:
+        return shard(x, "dp", "tp", None)
+    return shard(x, "dp", None, None)
+
+
+# Remat policy of the per-layer checkpoint. "full" recomputes everything
+# (min memory, but collectives inside the layer fire twice — forward and
+# recompute); "dots" saves matmul outputs, so the backward pass reuses them
+# and cross-shard partial-sum reductions run once.
+_REMAT_POLICY = ["full"]
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def set_remat_policy(name: str) -> None:
+    if name not in ("full", "dots"):
+        raise ValueError(f"remat policy {name!r}; have 'full' and 'dots'")
+    _REMAT_POLICY[0] = name
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _ckpt(fn, *args):
     """``fn(*args)``, recomputed in the backward pass instead of saved when
-    autograd records (non-reentrant ``torch.utils.checkpoint``)."""
-    if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    autograd records (non-reentrant ``torch.utils.checkpoint``); under the
+    "dots" policy the outputs of mm, bmm and addmm are saved."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    if _REMAT_POLICY[0] == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_dots))
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def scan_length(cfg: ArchConfig) -> int:
+    """The reference's layer-scan trip count: pattern periods for a
+    hybrid, layers otherwise (audio's encoder and decoder have as many)."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // len(tuple(cfg.block_pattern))
+    if cfg.family == "audio":
+        assert cfg.encoder_layers == cfg.num_layers
+        return cfg.num_layers
+    return cfg.num_layers
 
 
 def _pattern(cfg: ArchConfig) -> tuple[tuple, int, int]:
@@ -123,12 +187,14 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 device=None) -> dict:
     """Random parameters drawn on ``device`` (default ``cuda``; raises
     without a GPU unless ``device="cpu"``) from ``generator``, which must
-    live on that device (default: seed 0). The draws differ from the
+    live on that device (default: seed 0; on ``meta``, which draws
+    nothing, shapes and dtypes alone, no generator). The draws differ from the
     reference's ``jax.random`` ones; to hold the two packages against each
     other, convert the reference's tree with :func:`params_from_jax`."""
     device = resolve_device(device)
-    g = generator if generator is not None \
-        else torch.Generator(device=device).manual_seed(0)
+    g = generator
+    if g is None and device.type != "meta":
+        g = torch.Generator(device=device).manual_seed(0)
     dtype = cfg.activation_dtype
     D, V = cfg.d_model, cfg.padded_vocab
 
@@ -234,6 +300,7 @@ def _dense_layer_fwd(layer_p, cfg: ArchConfig, x, positions,
     h = rmsnorm(layer_p["ln1"], x)
     x = x + attn_forward(layer_p["attn"], cfg, h, positions,
                          window=cfg.swa_window)
+    x = shard(x, "dp", None, None)
     h = rmsnorm(layer_p["ln2"], x)
     if cfg.moe_num_experts:
         y, stats = moe_forward(layer_p["moe"], cfg, h)
@@ -263,6 +330,21 @@ def _hybrid_group_fwd(grp, cfg: ArchConfig, x, positions):
 
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
     emb = params["embed"]
+    if _dtensor(emb):
+        # without autograd, the vocab-parallel lookup (masked partial rows,
+        # reduced at once). Under autograd (DTensor has no backward for the
+        # masked partial sum) the table gathered over TP as well and each
+        # rank's rows looked up in it as plain tensors, the lookup the
+        # one-card path runs; its gradient is a partial sum over dp.
+        emb = gather_fsdp(emb)
+        if not torch.is_grad_enabled():
+            return shard(F.embedding(tokens.to(torch.long), emb),
+                         "dp", None, None)
+        rows = to_local_shards(emb, None, None, shared=True)[
+            to_local_shards(tokens, "dp", None).to(torch.long)]
+        return from_local_shards(rows, emb.device_mesh,
+                                 (*tokens.shape, emb.shape[1]),
+                                 "dp", None, None)
     return emb[tokens.to(emb.device, torch.long)]
 
 
@@ -283,13 +365,15 @@ def _encode(params, cfg: ArchConfig, frames: torch.Tensor, dtype
     though the layers use LayerNorm)."""
     e = frames.to(params["enc_pos"].device, dtype) + params["enc_pos"]
     for layer in params["enc_layers"]:
-        e = _ckpt(encdec.encoder_layer, layer, e, cfg.num_heads)
+        e = _carry_shard(_ckpt(encdec.encoder_layer, layer, e,
+                               cfg.num_heads))
     return rmsnorm(params["enc_ln_f"], e)
 
 
 def _head_matrix(params):
     head = params.get("head")
-    return head if head is not None else params["embed"].T
+    return gather_fsdp(head) if head is not None \
+        else gather_fsdp(params["embed"]).T
 
 
 def forward_hidden(params, cfg: ArchConfig, batch: dict,
@@ -309,6 +393,7 @@ def forward_hidden(params, cfg: ArchConfig, batch: dict,
     x = _embed(params, batch["tokens"])
     if fam == "vlm":
         x = _with_patches(params, batch, x)
+    x = shard(x, "dp", None, None)
     aux = torch.zeros((), device=x.device)
     positions = torch.arange(x.shape[1], device=x.device)
     if fam in ("dense", "moe", "vlm"):
@@ -317,22 +402,25 @@ def forward_hidden(params, cfg: ArchConfig, batch: dict,
                 x, a = _ckpt(_dense_layer_fwd, layer, cfg, x, positions)
             else:
                 x, a = _dense_layer_fwd(layer, cfg, x, positions, moe_stats)
+            x = _carry_shard(x)
             aux = aux + a
     elif fam == "ssm":
         for layer in params["layers"]:
-            x = _ckpt(rwkv_block, layer["blk"], cfg, x,
-                      (layer["ln1"], layer["ln2"]))
+            x = _carry_shard(_ckpt(rwkv_block, layer["blk"], cfg, x,
+                                   (layer["ln1"], layer["ln2"])))
     elif fam == "hybrid":
         pat = tuple(cfg.block_pattern)
         for grp in params["groups"]:
-            x = _ckpt(_hybrid_group_fwd, grp, cfg, x, positions)
+            x = _carry_shard(_ckpt(_hybrid_group_fwd, grp, cfg, x,
+                                   positions))
         for j, pos_p in enumerate(params["tail"]):
             x = _hybrid_position_fwd(pos_p, cfg, x, positions,
                                      pat[j % len(pat)])
     elif fam == "audio":
         enc = _encode(params, cfg, batch["frames"], x.dtype)
         for layer in params["dec_layers"]:
-            x = _ckpt(encdec.decoder_layer, layer, x, enc, cfg.num_heads)
+            x = _carry_shard(_ckpt(encdec.decoder_layer, layer, x, enc,
+                                   cfg.num_heads))
     else:
         raise ValueError(fam)
     return rmsnorm(params["norm_f"], x), aux
@@ -345,7 +433,7 @@ def forward(params, cfg: ArchConfig, batch: dict
     path. Training goes through :func:`loss_fn` (chunked CE; full-sequence
     float32 logits never exist)."""
     x, aux = forward_hidden(params, cfg, batch)
-    return x @ _head_matrix(params), aux
+    return shard(x @ _head_matrix(params), "dp", None, "tp"), aux
 
 
 # ===========================================================================
@@ -374,7 +462,14 @@ def _labels_and_mask(cfg: ArchConfig, batch: dict, S: int, device):
 def _ce_chunk(W, xc, lc, mc):
     logits = (xc @ W).float()                       # (B, C, V)
     logz = torch.logsumexp(logits, -1)
-    gold = logits.gather(-1, lc[..., None].long())[..., 0]
+    if _dtensor(logits):
+        # over a vocab shard, the gold logit as a vocab-parallel sum with
+        # one nonzero term (DTensor's masked gather fails to reduce); the
+        # same value as the gather
+        hot = F.one_hot(lc.long(), logits.shape[-1]).to(logits.dtype)
+        gold = (logits * hot).sum(-1)
+    else:
+        gold = logits.gather(-1, lc[..., None].long())[..., 0]
     m = mc.float()
     return ((logz - gold) * m).sum(), m.sum()
 
@@ -385,8 +480,10 @@ def chunked_ce(params, x: torch.Tensor, labels: torch.Tensor,
     recomputed in the backward pass: the (B, S, V) float32 logits never
     exist — only one chunk's (B, C, V) at a time. S is padded to a
     multiple of C (padding masked), and the chunks' sums accumulate in
-    order, as the reference's scan carries them."""
+    order, as the reference's scan carries them. A DTensor x has its
+    sequence gathered first (``gather_sequence``)."""
     W = _head_matrix(params)
+    x = gather_sequence(x)
     B, S, D = x.shape
     C = min(chunk, S)
     pad = (-S) % C
@@ -556,8 +653,8 @@ def _prefill_kv(attn_p, cfg: ArchConfig, h, positions,
     p % length."""
     b, s, _ = h.shape
     K, dh = cfg.num_kv_heads, cfg.hdim
-    k = linear(attn_p["wk"], h).reshape(b, s, K, dh)
-    v = linear(attn_p["wv"], h).reshape(b, s, K, dh)
+    k = split_heads(linear(attn_p["wk"], h), K, dh)
+    v = split_heads(linear(attn_p["wv"], h), K, dh)
     k = apply_rope(k, positions, cfg.rope_theta)
     length = cache.k.shape[1]
     if s >= length:

@@ -11,10 +11,11 @@ capacity, not to E.
 HopMoE's ``auto`` mode compares, per layer, the bytes the ``tokens``
 sharding would move (the dispatch buffers, out and back) with those of the
 ``weights`` sharding (an all-reduce of the output's float32 partial sums)
-and names the cheaper one. On one card both modes compute the same output:
-the reference's modes differ only in sharding annotations, which have no
-counterpart here (expert parallelism across cards is ROADMAP.md Queue 1
-item 13). ``MoEStats`` carries the decision and both byte counts, equal to
+and names the cheaper one. Both modes compute the same output: they differ
+only in the reference's sharding hints, which act on DTensors alone
+(``common.shard``): ``tokens`` shards the dispatch buffers and the expert
+stacks on the expert axis over TP, ``weights`` keeps the buffers whole and
+shards the experts' ffn dim. ``MoEStats`` carries the decision and both byte counts, equal to
 the reference's, and the routing itself, so a caller can compare it across
 devices.
 """
@@ -26,7 +27,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.transformer.common import init_linear
+from repro_torch.models.transformer.common import (
+    _dtensor, from_local_shards, gather_fsdp, init_linear, linear, shard,
+    to_local_shards)
 from repro_torch.models.transformer.mlp import init_mlp, mlp_forward
 
 
@@ -103,7 +106,7 @@ def moe_route(p: dict, cfg, x: torch.Tensor) -> MoERouting:
     B, S, _ = x.shape
     E, k = cfg.moe_num_experts, cfg.moe_top_k
     C = moe_capacity(S, k, E, cfg.moe_capacity_factor)
-    probs = torch.softmax(x.float() @ p["router"]["w"], -1)     # (B,S,E)
+    probs = torch.softmax(linear(p["router"], x.float()), -1)   # (B,S,E)
     top_p, top_e = torch.topk(probs, k, -1, sorted=True)        # (B,S,k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
     eid = top_e.reshape(B, S * k)                                # (B, N)
@@ -113,6 +116,46 @@ def moe_route(p: dict, cfg, x: torch.Tensor) -> MoERouting:
     slot = torch.where(keep, eid * C + my_pos, E * C)            # drop → spill
     return MoERouting(probs=probs, top_e=top_e, top_p=top_p, keep=keep,
                       slot=slot)
+
+
+def _dispatch(x_rep, slot, E: int, C: int) -> torch.Tensor:
+    """Each row's kept choices into its (E, C) slots: (B, E, C, D). Kept
+    slots are distinct within a row, so the sum adds each kept token to
+    zeros once; only the spill row (dropped, zeroed tokens) sees repeats,
+    and it is cut off."""
+    B, _, D = x_rep.shape
+    rows = torch.arange(B, device=x_rep.device)[:, None] * (E * C + 1)
+    flat = (rows + slot).reshape(-1)
+    buf = x_rep.new_zeros((B * (E * C + 1), D)).index_add(
+        0, flat, x_rep.reshape(-1, D))
+    return buf.reshape(B, E * C + 1, D)[:, : E * C].reshape(B, E, C, D)
+
+
+def _combine(out_buf, slot, gate, k: int) -> torch.Tensor:
+    """Each row's choices read back from its slots (the spill row reads
+    zeros), weighted by the gate and summed over the k choices:
+    (B, S, D)."""
+    B, E, C, D = out_buf.shape
+    out_flat = torch.cat([out_buf.reshape(B, E * C, D),
+                          out_buf.new_zeros((B, 1, D))], 1)
+    gathered = out_flat.gather(1, slot[..., None].expand(*slot.shape, D))
+    return (gathered * gate[..., None]).reshape(
+        B, slot.shape[1] // k, k, D).sum(2)
+
+
+def _per_row(fn, shape: tuple, *args):
+    """``fn(*args)``; on DTensors, on each rank's batch rows as plain
+    tensors (the slots index within a row, and DTensor's index_add and
+    gather over a sharded batch miscount their local rows), the result a
+    DTensor of global ``shape`` sharded on the batch over dp. A tensor
+    argument is taken whole but for its batch rows (the combine gathers
+    the expert buffers over TP, as its slots may name any expert)."""
+    if not _dtensor(args[0]):
+        return fn(*args)
+    local = [to_local_shards(a, "dp", *([None] * (a.dim() - 1)))
+             if isinstance(a, torch.Tensor) else a for a in args]
+    return from_local_shards(fn(*local), args[0].device_mesh, shape, "dp",
+                             *([None] * (len(shape) - 1)))
 
 
 def moe_forward(p: dict, cfg, x: torch.Tensor
@@ -129,26 +172,30 @@ def moe_forward(p: dict, cfg, x: torch.Tensor
     fe = F.one_hot(r.top_e[..., 0], E).float().mean((0, 1))
     aux = E * (fe * me).sum()
 
-    # dispatch: kept slots are distinct within a row, so the sum adds each
-    # kept token to zeros once; only the spill row (dropped, zeroed
-    # tokens) sees repeats, and it is cut off
     keep_x = r.keep[..., None].to(x.dtype)
     x_rep = torch.repeat_interleave(x, k, 1) * keep_x            # (B,N,D)
-    rows = torch.arange(B, device=x.device)[:, None] * (E * C + 1)
-    flat = (rows + r.slot).reshape(-1)
-    buf = x.new_zeros((B * (E * C + 1), D)).index_add(
-        0, flat, x_rep.reshape(-1, D))
-    buf = buf.reshape(B, E * C + 1, D)[:, : E * C].reshape(B, E, C, D)
+    buf = _per_row(_dispatch, (B, E, C, D), x_rep, r.slot, E, C)
 
-    h = F.silu(torch.einsum("becd,edf->becf", buf, p["wg"])) \
-        * torch.einsum("becd,edf->becf", buf, p["wu"])
-    out_buf = torch.einsum("becf,efd->becd", h, p["wd"])         # (B,E,C,D)
+    wg, wu, wd = (gather_fsdp(p[k]) for k in ("wg", "wu", "wd"))
+    if mode == "tokens":
+        buf = shard(buf, "dp", "tp", None, None)
+        wg = shard(wg, "tp", None, None)
+        wu = shard(wu, "tp", None, None)
+        wd = shard(wd, "tp", None, None)
+    else:
+        buf = shard(buf, "dp", None, None, None)
+        wg = shard(wg, None, None, "tp")
+        wu = shard(wu, None, None, "tp")
+        wd = shard(wd, None, "tp", None)
+    h = F.silu(torch.einsum("becd,edf->becf", buf, wg)) \
+        * torch.einsum("becd,edf->becf", buf, wu)
+    out_buf = torch.einsum("becf,efd->becd", h, wd)              # (B,E,C,D)
+    if mode == "tokens":
+        out_buf = shard(out_buf, "dp", "tp", None, None)
 
-    out_flat = torch.cat([out_buf.reshape(B, E * C, D),
-                          out_buf.new_zeros((B, 1, D))], 1)
-    gathered = out_flat.gather(1, r.slot[..., None].expand(B, S * k, D))
     gate = (r.top_p.reshape(B, S * k) * r.keep).to(x.dtype)
-    routed = (gathered * gate[..., None]).reshape(B, S, k, D).sum(2)
+    routed = _per_row(_combine, (B, S, D), out_buf, r.slot, gate, k)
+    routed = shard(routed, "dp", None, None)
     if "shared" in p:
         routed = routed + mlp_forward(p["shared"], x, "swiglu")
     return routed, MoEStats(aux_loss=aux, dispatch_bytes=db,

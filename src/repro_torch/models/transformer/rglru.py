@@ -26,7 +26,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.transformer.common import init_linear, linear, rmsnorm
+from repro_torch.models.transformer.common import (
+    _dtensor, from_local_shards, init_linear, linear, rmsnorm,
+    to_local_shards)
 
 C_SCALE = 8.0
 
@@ -60,7 +62,17 @@ def init_rglru_block(generator: torch.Generator, cfg, dtype,
 
 def _conv1d(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Causal depthwise temporal conv of width cw over x (B, S, W), the
-    taps summed in the reference's order."""
+    taps summed in the reference's order. A DTensor runs on each rank's
+    (batch, channel) shards: the conv is per channel along the sequence
+    (and DTensor plans a pad of a channel-sharded tensor wrongly on some
+    torch versions)."""
+    if _dtensor(x):
+        spec = ("dp", None, "tp")
+        local = {"conv_w": to_local_shards(p["conv_w"], None, "tp",
+                                           shared=True),
+                 "conv_b": to_local_shards(p["conv_b"], "tp", shared=True)}
+        return from_local_shards(_conv1d(local, to_local_shards(x, *spec)),
+                                 x.device_mesh, x.shape, *spec)
     cw = p["conv_w"].shape[0]
     xp = F.pad(x, (0, 0, cw - 1, 0))
     out = 0
@@ -84,7 +96,13 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t from h_{-1} = 0, over axis 1: a Hillis–Steele
     scan of ⌈log2 S⌉ doubling steps. Step d folds each position's pair with
     the one d earlier, (a, b) ∘ (a', b') = (a'·a, a·b' + b), the
-    reference's associative combine."""
+    reference's associative combine. DTensors scan each rank's (batch,
+    channel) shards."""
+    if _dtensor(a):
+        spec = ("dp", None, "tp")
+        return from_local_shards(
+            rglru_scan(*(to_local_shards(t, *spec) for t in (a, b))),
+            a.device_mesh, a.shape, *spec)
     S = a.shape[1]
     d = 1
     while d < S:

@@ -21,8 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.transformer.common import (init_linear, linear,
-                                                   rmsnorm)
+from repro_torch.models.transformer.common import (
+    _dtensor, from_local_shards, init_linear, linear, rmsnorm,
+    to_local_shards, tp_size)
 
 
 class RWKVState(NamedTuple):
@@ -85,6 +86,39 @@ def _chunk(S: int) -> int:
     return 64 if S % 64 == 0 else (S if S < 64 else 1)
 
 
+def _linattn_heads(r, k, v, w, u, state_s, S: int):
+    """The linear attention of r, k, v, w (B, S, H, hd) with bonus u (H,
+    hd) from state_s (B, H, hd, hd) or zeros: (o (B, S, H, hd) float32,
+    state (B, H, hd, hd)). DTensors run on each rank's (batch, head)
+    shards: the batch over dp, the heads over TP where they divide."""
+    if _dtensor(r):
+        mesh = r.device_mesh
+        heads = "tp" if r.shape[2] % tp_size(mesh) == 0 else None
+        spec = ("dp", None, heads, None)
+        o, s_new = _linattn_heads(
+            *(to_local_shards(t, *spec) for t in (r, k, v, w)),
+            to_local_shards(u, heads, None, shared=True),
+            None if state_s is None
+            else to_local_shards(state_s, "dp", heads, None, None), S)
+        B, _, H, hd = r.shape
+        return (from_local_shards(o, mesh, (B, S, H, hd), *spec),
+                from_local_shards(s_new, mesh, (B, H, hd, hd), "dp", heads,
+                                  None, None))
+    B, _, H, hd = r.shape
+
+    def to_bh(t):  # (B,S,H,hd) -> (B*H, S, hd) float32, contiguous
+        return t.permute(0, 2, 1, 3).reshape(B * H, S, hd).float() \
+            .contiguous()
+
+    o, s_new = ops.linattn(to_bh(r), to_bh(k), to_bh(v), to_bh(w),
+                           u.repeat(B, 1),                 # (B*H, hd)
+                           state=(state_s.reshape(B * H, hd, hd)
+                                  if state_s is not None else None),
+                           chunk=_chunk(S))
+    return (o.reshape(B, H, S, hd).permute(0, 2, 1, 3),
+            s_new.reshape(B, H, hd, hd))
+
+
 def rwkv_timemix(p, cfg, x, x_prev, state_s: Optional[torch.Tensor]):
     """x: (B,S,D); x_prev: right-shifted x; state_s: (B,H,dk,dv) or None."""
     B, S, D = x.shape
@@ -97,19 +131,11 @@ def rwkv_timemix(p, cfg, x, x_prev, state_s: Optional[torch.Tensor]):
     g = linear(p["wg"], xg)
     w = _decay(p, xw).reshape(B, S, H, hd)
 
-    def to_bh(t):  # (B,S,H,hd) -> (B*H, S, hd) float32, contiguous
-        return t.permute(0, 2, 1, 3).reshape(B * H, S, hd).float() \
-            .contiguous()
-
-    o, s_new = ops.linattn(to_bh(r), to_bh(k), to_bh(v), to_bh(w),
-                           p["u"].repeat(B, 1),            # (B*H, hd)
-                           state=(state_s.reshape(B * H, hd, hd)
-                                  if state_s is not None else None),
-                           chunk=_chunk(S))
-    o = o.reshape(B, H, S, hd).permute(0, 2, 1, 3).reshape(B, S, D)
+    o, s_new = _linattn_heads(r, k, v, w, p["u"], state_s, S)
+    o = o.reshape(B, S, D)
     o = _group_norm(o.to(x.dtype), p["gn_g"], p["gn_b"], H)
     out = linear(p["wo"], o * F.silu(g))
-    return out, s_new.reshape(B, H, hd, hd)
+    return out, s_new
 
 
 def rwkv_channelmix(p, x, x_prev):
@@ -121,6 +147,13 @@ def rwkv_channelmix(p, x, x_prev):
 
 
 def _shift_right(x):
+    """x shifted one position right along the sequence, zeros first; a
+    DTensor on each rank's (batch, channel) shards (DTensor plans a pad
+    of a channel-sharded tensor wrongly on some torch versions)."""
+    if _dtensor(x):
+        spec = ("dp", None, "tp")
+        return from_local_shards(_shift_right(to_local_shards(x, *spec)),
+                                 x.device_mesh, x.shape, *spec)
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
@@ -138,6 +171,29 @@ def rwkv_block(p, cfg, x, norms, return_state: bool = False):
     return x
 
 
+def _linattn_step_heads(r, k, v, w, u, s):
+    """One decode step of the linear attention on DTensors r, k, v, w
+    (B, H, hd) with state s (B, H, hd, hd), on each rank's (batch, head)
+    shards: (o (B, H, hd), new state). Flattening (B, H) would merge two
+    sharded dims, which DTensor refuses."""
+    mesh = r.device_mesh
+    B, H, hd = r.shape
+    heads = "tp" if H % tp_size(mesh) == 0 else None
+    rl, kl, vl, wl = (to_local_shards(t, "dp", heads, None)
+                      for t in (r, k, v, w))
+    bl, hl = rl.shape[:2]
+    o, s_new = ops.linattn_step(
+        *(t.reshape(bl * hl, hd).float() for t in (rl, kl, vl)),
+        wl.reshape(bl * hl, hd),
+        to_local_shards(u, heads, None, shared=True).repeat(bl, 1),
+        to_local_shards(s, "dp", heads, None, None).reshape(bl * hl, hd,
+                                                            hd))
+    return (from_local_shards(o.reshape(bl, hl, hd), mesh, (B, H, hd),
+                              "dp", heads, None),
+            from_local_shards(s_new.reshape(bl, hl, hd, hd), mesh,
+                              (B, H, hd, hd), "dp", heads, None, None))
+
+
 def rwkv_block_decode(p, cfg, x, norms, state: RWKVState):
     """x: (B, 1, D) one token; returns (x, new_state)."""
     B, _, D = x.shape
@@ -146,15 +202,24 @@ def rwkv_block_decode(p, cfg, x, norms, state: RWKVState):
     h = rmsnorm(norms[0], x)
     h_prev = state.tm_x[:, None, :]
     xr, xk, xv, xg, xw = _timemix_inputs(p, h, h_prev)
-    r = linear(p["wr"], xr).reshape(B * H, hd)
-    k = linear(p["wk"], xk).reshape(B * H, hd)
-    v = linear(p["wv"], xv).reshape(B * H, hd)
     g = linear(p["wg"], xg)
-    w = _decay(p, xw).reshape(B * H, hd)
-    o, s_new = ops.linattn_step(r.float(), k.float(), v.float(), w,
-                                p["u"].repeat(B, 1),
-                                state.s.reshape(B * H, hd, hd))
-    o = o.reshape(B, 1, D).to(x.dtype)
+    if _dtensor(x):
+        o, s_new = _linattn_step_heads(
+            *(t.reshape(B, H, hd) for t in (linear(p["wr"], xr),
+                                            linear(p["wk"], xk),
+                                            linear(p["wv"], xv),
+                                            _decay(p, xw))),
+            p["u"], state.s)
+        o = o.reshape(B, 1, D).to(x.dtype)
+    else:
+        r = linear(p["wr"], xr).reshape(B * H, hd)
+        k = linear(p["wk"], xk).reshape(B * H, hd)
+        v = linear(p["wv"], xv).reshape(B * H, hd)
+        w = _decay(p, xw).reshape(B * H, hd)
+        o, s_new = ops.linattn_step(r.float(), k.float(), v.float(), w,
+                                    p["u"].repeat(B, 1),
+                                    state.s.reshape(B * H, hd, hd))
+        o = o.reshape(B, 1, D).to(x.dtype)
     o = _group_norm(o, p["gn_g"], p["gn_b"], H)
     x = x + linear(p["wo"], o * F.silu(g))
     tm_x_new = h[:, 0]

@@ -1,6 +1,7 @@
-"""The port's pod dry run (``repro_torch.launch.dryrun_gnn``), its census
-of collectives (``launch.dryrun``), its meshes (``launch.mesh``) and the
-shape registry (``configs``), against the reference.
+"""The port's pod dry runs (``repro_torch.launch.dryrun_gnn`` and the
+transformer's ``launch.dryrun``), the census of collectives, the meshes
+(``launch.mesh``) and the shape registry (``configs``), against the
+reference.
 
 Every dry run is a subprocess with one torch thread and a timeout of its
 own: a process holds one default process group at a time, and a fake
@@ -468,15 +469,203 @@ _IMPORTS = """
 import json, sys
 import torch.distributed as dist
 import repro_torch.launch.dryrun, repro_torch.launch.dryrun_gnn
-import repro_torch.launch.mesh
+import repro_torch.launch.mesh, repro_torch.launch.sharding
 print(json.dumps({"initialized": dist.is_initialized(),
                   "fake_pg": "torch.testing._internal.distributed.fake_pg"
-                             in sys.modules}))
+                             in sys.modules,
+                  "jax": sorted(k for k in sys.modules
+                                if k.split(".")[0] in ("jax", "repro"))}))
 """
 
 
 def test_importing_the_dry_run_starts_no_world():
-    """Importing the dry-run modules starts no process group and loads no
-    ``torch.testing._internal`` module."""
+    """Importing the dry-run modules and the sharding policy starts no
+    process group and loads no ``torch.testing._internal`` module, and no
+    module of JAX or of the reference."""
     assert _last_json(_python(_IMPORTS)) == {"initialized": False,
-                                            "fake_pg": False}
+                                            "fake_pg": False, "jax": []}
+
+
+# ---------------------------------------------------------------------------
+# the transformer pod dry run: launch/dryrun.py's lower_combo and main
+# ---------------------------------------------------------------------------
+
+LM_TIMEOUT_S = 400
+# rank 0's argument bytes of the reference's qwen2-1.5b × train_4k on its
+# 16x16 mesh (memory_analysis() of the compiled step, XLA on 512
+# placeholder host devices)
+REF_TRAIN_ARGUMENT_BYTES = 70_785_028
+# the reference record's keys (repro/launch/dryrun.py's lower_combo)
+REF_KEYS = {"arch", "shape", "mesh", "family", "tag", "status", "seq_shard",
+            "remat_policy", "fsdp", "compile_seconds", "memory",
+            "scan_length", "flops_hlo_raw", "flops", "bytes_accessed_raw",
+            "bytes_accessed", "collectives", "collective_bytes_total",
+            "collective_bytes_by_op", "params", "active_params"}
+
+
+def _lm_cli(args, out_dir, expect_rc=0):
+    """``python -m repro_torch.launch.dryrun ... --device cpu`` in a child
+    with one thread; its stdout."""
+    full = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, HERE]),
+                OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+         "--device", "cpu", "--results-dir", str(out_dir)],
+        env=full, capture_output=True, text=True, timeout=LM_TIMEOUT_S)
+    assert proc.returncode == expect_rc, proc.stderr[-4000:]
+    return proc.stdout
+
+
+def _record(out_dir, arch, shape, mesh="16x16"):
+    return json.loads((out_dir / f"{arch}.{shape}.{mesh}.json").read_text())
+
+
+@pytest.fixture(scope="module")
+def lm_train(tmp_path_factory):
+    out = tmp_path_factory.mktemp("lm_train")
+    stdout = _lm_cli(["--arch", "qwen2-1.5b", "--shape", "train_4k"], out)
+    return stdout, _record(out, "qwen2-1.5b", "train_4k")
+
+
+def test_lm_train_record_argument_bytes_and_census(lm_train):
+    """qwen2-1.5b × train_4k on the fake 256-rank world: rank 0's share of
+    the parameters, AdamW's moments and step and the batch is the
+    reference's argument size to the byte; the census counts every kind
+    of collective the step issues and agrees with CommDebugMode's count."""
+    stdout, rec = lm_train
+    assert rec["status"] == "ok" and rec["accum"] == 1
+    assert rec["memory"]["argument_size_in_bytes"] \
+        == REF_TRAIN_ARGUMENT_BYTES
+    coll = rec["collectives"]
+    assert coll["count_by_op"] == rec["comm_debug_counts"]
+    assert set(coll["count_by_op"]) >= {"all-gather", "all-reduce",
+                                        "reduce-scatter"}
+    assert all(n > 0 for n in coll["count_by_op"].values())
+    assert all(b > 0 for b in coll["bytes_by_op"].values())
+    assert rec["collective_bytes_total"] == coll["total_bytes"] \
+        == sum(coll["bytes_by_op"].values())
+    assert "[ok     ] qwen2-1.5b × train_4k × 16x16" in stdout
+    assert stdout.strip().splitlines()[-1] == "done: 1 ok, 0 skipped, 0 failed"
+
+
+def test_lm_record_has_the_reference_keys(lm_train):
+    _, rec = lm_train
+    assert REF_KEYS | {"accum", "flops_global", "manifest"} <= set(rec)
+    assert set(rec["memory"]) == {"argument_size_in_bytes",
+                                  "output_size_in_bytes",
+                                  "temp_size_in_bytes",
+                                  "generated_code_size_in_bytes"}
+    assert rec["memory"]["generated_code_size_in_bytes"] == 0
+    assert rec["memory"]["temp_size_in_bytes"] > 0
+    assert set(rec["collectives"]) == {"bytes_by_op", "count_by_op",
+                                       "total_bytes"}
+    assert (rec["mesh"], rec["family"], rec["fsdp"], rec["seq_shard"],
+            rec["remat_policy"], rec["scan_length"]) \
+        == ("16x16", "dense", True, True, "full", 28)
+    assert rec["params"] == rec["active_params"] == 1_782_140_928
+    assert rec["flops_hlo_raw"] == rec["flops"]
+    assert rec["bytes_accessed_raw"] == rec["bytes_accessed"] > 0
+    assert {"torch", "cuda", "gpu"} <= set(rec["manifest"])
+
+
+_PLAIN_FLOPS = """
+import json, sys, torch
+from torch.utils.flop_counter import FlopCounterMode
+from repro_torch.configs import SHAPES, get_config, input_specs
+from repro_torch.launch.train import make_train_step, pick_accum, pick_optimizer
+from repro_torch.models.transformer import (decode_step, init_decode_state,
+                                            init_params)
+out = {}
+for arch, shape in (("qwen2-1.5b", "train_4k"), ("qwen2-1.5b", "decode_32k")):
+    cfg, sh = get_config(arch), SHAPES[shape]
+    params = init_params(cfg, device="meta")
+    data = input_specs(cfg, shape)
+    with FlopCounterMode(display=False) as fc:
+        if sh.kind == "train":
+            opt = pick_optimizer(cfg)
+            make_train_step(cfg, opt, pick_accum(cfg, sh.global_batch))(
+                params, opt.init(params), data)
+        else:
+            state = init_decode_state(cfg, sh.global_batch, sh.seq_len,
+                                      device="meta")
+            with torch.no_grad():
+                decode_step(params, cfg, data["token"], state)
+    out[shape] = fc.get_total_flops()
+print(json.dumps(out))
+"""
+
+
+def test_lm_flops_global_and_local(lm_train, tmp_path):
+    """``flops_global`` is FlopCounterMode's count of the same step on
+    plain meta tensors (train and decode), and rank 0's ``flops`` lies
+    between a 256th of it and all of it."""
+    _, train = lm_train
+    _lm_cli(["--arch", "qwen2-1.5b", "--shape", "decode_32k"], tmp_path)
+    decode = _record(tmp_path, "qwen2-1.5b", "decode_32k")
+    plain = _last_json(_python(_PLAIN_FLOPS))
+    for rec, shape in ((train, "train_4k"), (decode, "decode_32k")):
+        assert rec["flops_global"] == plain[shape] > 0
+        assert rec["flops_global"] / 256 <= rec["flops"] \
+            <= rec["flops_global"]
+
+
+def test_lm_statuses_skipped_and_failed(tmp_path):
+    """A long_500k combo of a full-attention arch is skipped with the
+    reference's reason; an invalid MoE dispatch fails the combo (error and
+    trace recorded) and main exits 1."""
+    stdout = _lm_cli(["--arch", "qwen2-1.5b", "--shape", "long_500k"],
+                     tmp_path)
+    rec = _record(tmp_path, "qwen2-1.5b", "long_500k")
+    reason = jax_shape_applicable(jax_get_config("qwen2-1.5b"),
+                                  "long_500k")[1]
+    assert rec["status"] == "skipped" and rec["reason"] == reason
+    assert "done: 0 ok, 1 skipped, 0 failed" in stdout
+    stdout = _lm_cli(["--arch", "deepseek-moe-16b", "--shape", "decode_32k",
+                      "--moe-dispatch", "bogus", "--tag", "bad"], tmp_path,
+                     expect_rc=1)
+    rec = json.loads((tmp_path / "deepseek-moe-16b.decode_32k.16x16.bad.json")
+                     .read_text())
+    assert rec["status"] == "failed"
+    assert "moe_dispatch 'bogus'" in rec["error"]
+    assert "Traceback" in rec["trace"] and len(rec["trace"]) <= 2000
+    assert "[failed ] deepseek-moe-16b × decode_32k × 16x16" in stdout
+    assert "done: 0 ok, 0 skipped, 1 failed" in stdout
+
+
+_NO_CUDA_LINATTN = """
+import json, sys
+import torch
+from repro_torch.kernels import _build, linattn as la, ops
+def refuse(*a, **k):
+    raise AssertionError("the CUDA linattn was reached")
+_build.load = refuse
+la.linattn_chunked = refuse
+# the plain version on meta inputs
+q = torch.empty((4, 128, 64), device="meta")
+u = torch.empty((4, 64), device="meta")
+o, s = ops.linattn(q, q, q, q, u)
+from repro_torch.launch import dryrun
+dryrun.main(sys.argv[1:])
+print(json.dumps({"launches": la.launches["linattn"],
+                  "library": la._lib is not None,
+                  "o": list(o.shape), "s": list(s.shape)}))
+"""
+
+
+def test_lm_dry_run_never_reaches_the_cuda_linattn(tmp_path):
+    """rwkv6-7b × decode_32k with the CUDA kernel's wrapper and library
+    loader replaced by ones that raise: the combo is ok, nothing was
+    launched or loaded, and ops.linattn on meta tensors takes the plain
+    version."""
+    full = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, HERE]),
+                OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_CUDA_LINATTN, "--arch", "rwkv6-7b",
+         "--shape", "decode_32k", "--device", "cpu", "--results-dir",
+         str(tmp_path)], env=full, capture_output=True, text=True,
+        timeout=LM_TIMEOUT_S)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = _last_json(proc.stdout)
+    assert res == {"launches": 0, "library": False, "o": [4, 128, 64],
+                   "s": [4, 64, 64]}
+    assert _record(tmp_path, "rwkv6-7b", "decode_32k")["status"] == "ok"

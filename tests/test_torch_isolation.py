@@ -88,7 +88,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                  "models.transformer.mlp", "launch.train", "configs.qwen2_1_5b",
                  "configs.qwen2_5_3b", "configs.h2o_danube_3_4b",
                  "configs.nemotron_4_340b", "launch.mesh", "launch.dryrun",
-                 "launch.dryrun_gnn"):
+                 "launch.dryrun_gnn", "launch.sharding"):
         assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
@@ -173,3 +173,12 @@ def test_dryrun_entry_without_gpu_raises():
         dryrun_gnn.main(["--multi-pod"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mesh.init_fake_world(8)
+
+
+def test_transformer_dryrun_entry_without_gpu_raises():
+    _no_gpu()
+    from repro_torch.launch import dryrun
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.main(["--arch", "qwen2-1.5b", "--shape", "decode_32k"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.lower_combo("qwen2-1.5b", "decode_32k", multi_pod=False)
