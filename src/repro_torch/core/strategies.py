@@ -256,60 +256,64 @@ def plan_iteration(graph: CSRGraph,
     if sample_seed is None:
         rng = rng or np.random.default_rng(0)
     n = len(roots_per_model)
-    if strategy == "lo":
-        # LO samples only within the local partition (that *is* the bias
-        # the paper measures in §7.9): drop cross-partition edges so every
-        # sampled neighbor — hence every feature — is local.
-        from repro_torch.graph.partition import drop_cross_edges
-        graph = drop_cross_edges(graph, part)
-    amat = _assignment_for(strategy, [np.asarray(r, np.int64)
-                                      for r in roots_per_model], part, assignment)
-    T = amat.num_steps
-
-    # Padding roots must add no phantom remote traffic: each (shard, step)
-    # block is sampled over its *true* roots only and then padded with a
-    # constant local vertex at every tree position (not with the pad
-    # vertex's real sampled neighborhood, which could be remote). The
-    # stateless sampler makes a root's subtree independent of its batch
-    # position, so true-root trees are unchanged; padded positions carry
-    # weight 0 and never touch the loss. This also makes planned remote
-    # requests a pure function of (roots, seed) — what the repro_torch.cache
-    # epoch prefetcher predicts.
-    pad_vertex = np.zeros(n, np.int64)
-    for s in range(n):
-        loc = np.nonzero(owner == s)[0]
-        pad_vertex[s] = loc[0] if loc.size else 0
-
-    counts = amat.root_counts()                      # (T, N)
-    if batch_pad is None:
-        batch_pad = max(1, int(counts.max()))
-    if counts.max() > batch_pad:
-        raise PlanOverflow("batch_pad", int(counts.max()), int(batch_pad))
-
+    span = _obs_trace.span
     # ---- sample one TreeBlock per (shard, step), pad with local rows ----
-    lab_arr = np.zeros((n, T, batch_pad), np.int32)
-    w_arr = np.zeros((n, T, batch_pad), np.float32)
-    jobs = []                                   # (s, t, true_roots, k)
-    for s in range(n):
-        for t in range(T):
-            roots = amat.roots_at(s, t)
-            k = roots.size
-            if k:
-                lab_arr[s, t, :k] = labels[roots]
-                w_arr[s, t, :k] = 1.0
-            jobs.append((s, t, roots, k))
+    with span("plan.sample"):
+        if strategy == "lo":
+            # LO samples only within the local partition (that *is* the
+            # bias the paper measures in §7.9): drop cross-partition edges
+            # so every sampled neighbor — hence every feature — is local.
+            from repro_torch.graph.partition import drop_cross_edges
+            graph = drop_cross_edges(graph, part)
+        amat = _assignment_for(strategy, [np.asarray(r, np.int64)
+                                          for r in roots_per_model], part,
+                               assignment)
+        T = amat.num_steps
 
-    sample_exec = executor if sample_seed is not None else None
-    blks = _pmap(sample_exec,
-                 lambda j: sample_tree_block(graph, j[2], num_layers, fanout,
-                                             rng=rng, seed=sample_seed),
-                 jobs, label="plan.sample")
-    blocks: list[list[TreeBlock]] = [[None] * T for _ in range(n)]  # [s][t]
-    true_root_blocks: list[TreeBlock] = []      # unpadded, for accounting
-    for (s, t, _, k), blk in zip(jobs, blks):
-        blocks[s][t] = _pad_tree_block(blk, batch_pad, pad_vertex[s])
-        if k:
-            true_root_blocks.append(blk)
+        # Padding roots must add no phantom remote traffic: each (shard,
+        # step) block is sampled over its *true* roots only and then padded
+        # with a constant local vertex at every tree position (not with the
+        # pad vertex's real sampled neighborhood, which could be remote).
+        # The stateless sampler makes a root's subtree independent of its
+        # batch position, so true-root trees are unchanged; padded positions
+        # carry weight 0 and never touch the loss. This also makes planned
+        # remote requests a pure function of (roots, seed) — what the
+        # repro_torch.cache epoch prefetcher predicts.
+        pad_vertex = np.zeros(n, np.int64)
+        for s in range(n):
+            loc = np.nonzero(owner == s)[0]
+            pad_vertex[s] = loc[0] if loc.size else 0
+
+        counts = amat.root_counts()                  # (T, N)
+        if batch_pad is None:
+            batch_pad = max(1, int(counts.max()))
+        if counts.max() > batch_pad:
+            raise PlanOverflow("batch_pad", int(counts.max()), int(batch_pad))
+
+        lab_arr = np.zeros((n, T, batch_pad), np.int32)
+        w_arr = np.zeros((n, T, batch_pad), np.float32)
+        jobs = []                               # (s, t, true_roots, k)
+        for s in range(n):
+            for t in range(T):
+                roots = amat.roots_at(s, t)
+                k = roots.size
+                if k:
+                    lab_arr[s, t, :k] = labels[roots]
+                    w_arr[s, t, :k] = 1.0
+                jobs.append((s, t, roots, k))
+
+        sample_exec = executor if sample_seed is not None else None
+        blks = _pmap(sample_exec,
+                     lambda j: sample_tree_block(graph, j[2], num_layers,
+                                                 fanout, rng=rng,
+                                                 seed=sample_seed),
+                     jobs, label="plan.sample.job")
+        blocks: list[list[TreeBlock]] = [[None] * T for _ in range(n)]
+        true_root_blocks: list[TreeBlock] = []  # unpadded, for accounting
+        for (s, t, _, k), blk in zip(jobs, blks):
+            blocks[s][t] = _pad_tree_block(blk, batch_pad, pad_vertex[s])
+            if k:
+                true_root_blocks.append(blk)
 
     # ---- gather plans ----
     def shard_needed(s: int, ts: Sequence[int]) -> np.ndarray:
@@ -320,15 +324,17 @@ def plan_iteration(graph: CSRGraph,
     hop_idx = [np.zeros((n, T, sz), np.int32) for sz in hop_sizes]
 
     if pregather:
-        needed = [shard_needed(s, range(T)) for s in range(n)]
-        if streamed:
-            local_ids, l_max_eff = split_local_touched(needed, owner, l_max)
-            plan = build_gather_plan(needed, owner, local_idx, n, l_max_eff,
-                                     r_max, cache=cache_index)
-        else:
-            local_ids, l_max_eff = None, 0
-            plan = build_gather_plan(needed, owner, local_idx, n, local_rows,
-                                     r_max, cache=cache_index)
+        with span("plan.dedup"):
+            needed = [shard_needed(s, range(T)) for s in range(n)]
+            if streamed:
+                local_ids, l_max_eff = split_local_touched(needed, owner,
+                                                           l_max)
+                plan = build_gather_plan(needed, owner, local_idx, n,
+                                         l_max_eff, r_max, cache=cache_index)
+            else:
+                local_ids, l_max_eff = None, 0
+                plan = build_gather_plan(needed, owner, local_idx, n,
+                                         local_rows, r_max, cache=cache_index)
         req, step_req = plan.req, None
         r_max_eff = plan.r_max
         c_max_eff = plan.c_max
@@ -344,8 +350,9 @@ def plan_iteration(graph: CSRGraph,
                 for h in range(num_layers + 1):
                     hop_idx[h][s, t] = widx[h]
 
-        _pmap(executor, translate_shard, list(range(n)),
-              label="plan.translate")
+        with span("plan.translate"):
+            _pmap(executor, translate_shard, list(range(n)),
+                  label="plan.translate.job")
         remote_exact = plan.remote_rows_exact()
         cache_hit_rows = plan.cache_hit_rows()
         # only trailing-LFU observation consumes remote_ids; don't tax the
@@ -362,13 +369,14 @@ def plan_iteration(graph: CSRGraph,
         # across steps remain (that is exactly what §5.2 eliminates). A
         # resident cache still dedups across steps implicitly: a cached
         # vertex is a hit at *every* step that touches it.
-        step_plans = _pmap(
-            executor,
-            lambda t: build_gather_plan([shard_needed(s, [t])
-                                         for s in range(n)],
-                                        owner, local_idx, n, local_rows,
-                                        r_max, cache=cache_index),
-            list(range(T)), label="plan.step_gather")
+        with span("plan.dedup"):
+            step_plans = _pmap(
+                executor,
+                lambda t: build_gather_plan([shard_needed(s, [t])
+                                             for s in range(n)],
+                                            owner, local_idx, n, local_rows,
+                                            r_max, cache=cache_index),
+                list(range(T)), label="plan.dedup.job")
         r_max_eff = r_max or max(p.r_max for p in step_plans)
         c_max_eff = step_plans[0].c_max if step_plans else 0
         if any(p.req_count.max() > r_max_eff for p in step_plans):
@@ -391,8 +399,9 @@ def plan_iteration(graph: CSRGraph,
                 for h in range(num_layers + 1):
                     hop_idx[h][s, t] = widx[h]
 
-        _pmap(executor, translate_step, list(range(T)),
-              label="plan.translate")
+        with span("plan.translate"):
+            _pmap(executor, translate_step, list(range(T)),
+                  label="plan.translate.job")
         req = np.zeros((n, n, r_max_eff), np.int32)  # unused in per-step mode
         l_max_eff = 0
         feat_local = feat_fetch = tier_stats = None
@@ -405,26 +414,27 @@ def plan_iteration(graph: CSRGraph,
             for s in range(n)] if cache_index is not None else None)
 
     # ---- accounting over true (unpadded) roots ----
-    total_rows = sum(b.num_feature_rows() for b in true_root_blocks)
-    uniq_all: list[np.ndarray] = []
-    remote_nodedup = 0
-    step_unique = 0
-    for s in range(n):
-        per_step_ids = []
-        for t in range(T):
-            roots = amat.roots_at(s, t)
-            if roots.size == 0:
-                continue
-            ids = blocks[s][t].select(np.arange(roots.size)).all_ids()
-            per_step_ids.append(ids)
-        if per_step_ids:
-            allids = np.concatenate(per_step_ids)
-            uniq_all.append(np.unique(allids))
-            for ids in per_step_ids:
-                u = np.unique(ids)
-                step_unique += u.size
-                remote_nodedup += int((owner[u] != s).sum())
-    unique_rows = int(sum(u.size for u in uniq_all))
+    with span("plan.account"):
+        total_rows = sum(b.num_feature_rows() for b in true_root_blocks)
+        uniq_all: list[np.ndarray] = []
+        remote_nodedup = 0
+        step_unique = 0
+        for s in range(n):
+            per_step_ids = []
+            for t in range(T):
+                roots = amat.roots_at(s, t)
+                if roots.size == 0:
+                    continue
+                ids = blocks[s][t].select(np.arange(roots.size)).all_ids()
+                per_step_ids.append(ids)
+            if per_step_ids:
+                allids = np.concatenate(per_step_ids)
+                uniq_all.append(np.unique(allids))
+                for ids in per_step_ids:
+                    u = np.unique(ids)
+                    step_unique += u.size
+                    remote_nodedup += int((owner[u] != s).sum())
+        unique_rows = int(sum(u.size for u in uniq_all))
 
     return IterationPlan(
         num_shards=n, num_steps=T, fanout=fanout, num_layers=num_layers,

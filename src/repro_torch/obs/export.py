@@ -11,6 +11,30 @@ trace-event JSON format — load the file at https://ui.perfetto.dev or
 - ``cache+readahead`` the shared cache/readahead worker
 - ``planner-N``       planner fan-out pool threads (when cores allow)
 
+The planner's spans, outermost first: ``plan.build`` (one plan, its
+upload commit included) on ``prefetch``; inside it one ``plan.pass`` per
+call of the planner (``probe=True`` on a new merge pattern's probe, and
+``error=PlanOverflow`` on a pass that overflowed its budget and was
+rebuilt); inside each pass the stages ``plan.sample``, ``plan.dedup``,
+``plan.translate`` and ``plan.account`` on the same lane. The stages'
+per-item work, ``plan.sample.job``, ``plan.dedup.job`` (per-step mode)
+and ``plan.translate.job``, lands on whichever ``planner-N`` lane runs
+it, or nested in its stage when the pool is off.
+
+The rest of the training path: ``plan.wait``, ``dispatch`` (the host's
+enqueue) and ``loss.sync``/``trace.sync`` (the synced windows that hold
+the device's time) on ``main``; ``cache.forecast``, ``cache.refresh`` and
+``features.readahead(.forecast)`` on ``cache+readahead``; and, on the
+thread that does them, ``cache.install``/``cache.upload``,
+``ckpt.save``/``ckpt.load`` and ``membership.probe/detect/rebuild/resume``.
+
+Each span's args carry ``cpu_ms``, the recording thread's CPU time inside
+it; the document's ``metadata`` carries the recorder's ``clock_pairs``
+(``[perf_counter_ns, time_ns]`` at enable and at disable) and
+``epoch_perf_counter_ns``, the perf_counter time of ``ts`` 0, so the
+timeline can be put on the system clock of a ``torch.profiler`` trace of
+the same run.
+
 ``run_manifest()`` stamps artifacts with the git sha, the torch, CUDA,
 numpy and Python versions, the GPU's name and power limit, and the
 platform, so any result or trace file can be matched to the commit and the
@@ -136,7 +160,9 @@ def chrome_trace(records=None, manifest: Optional[dict] = None) -> dict:
     (defaults to the live recorder's). Complete spans become ``ph:"X"``
     events with µs timestamps relative to the recording epoch; instant
     marks become ``ph:"i"`` thread-scoped instants; every track gets a
-    ``thread_name`` metadata event."""
+    ``thread_name`` metadata event. Spans carry ``cpu_ms`` in their args;
+    ``metadata`` is the manifest with the recorder's clock pairs and
+    epoch added."""
     recs = _trace.records() if records is None else list(records)
     t0 = _trace.epoch_ns()
     labels: list[str] = []
@@ -166,14 +192,20 @@ def chrome_trace(records=None, manifest: Optional[dict] = None) -> dict:
         else:
             ev["ph"] = "i"
             ev["s"] = "t"
-        if r.tags:
-            ev["args"] = {k: (v if isinstance(v, (int, float, bool))
-                              else str(v)) for k, v in r.tags.items()}
+        args = {k: (v if isinstance(v, (int, float, bool)) else str(v))
+                for k, v in (r.tags or {}).items()}
+        if r.kind == "X":
+            args["cpu_ms"] = r.cpu_ns / 1e6
+        if args:
+            ev["args"] = args
         events.append(ev)
+    metadata = dict(manifest if manifest is not None else run_manifest())
+    metadata["clock_pairs"] = [list(p) for p in _trace.clock_pairs()]
+    metadata["epoch_perf_counter_ns"] = t0
     return {
         "traceEvents": events,
         "displayTimeUnit": "ms",
-        "metadata": manifest if manifest is not None else run_manifest(),
+        "metadata": metadata,
         "otherData": {"dropped_records": _trace.dropped(),
                       "span_records": len(recs)},
     }
@@ -218,13 +250,24 @@ def validate_chrome_trace(doc: dict) -> list[str]:
             dur = ev.get("dur")
             if not isinstance(dur, (int, float)) or dur < 0:
                 problems.append(f"event {i}: bad dur {dur!r}")
+            cpu = ev.get("args", {}).get("cpu_ms", 0)
+            if not isinstance(cpu, (int, float)) or cpu < 0:
+                problems.append(f"event {i}: bad cpu_ms {cpu!r}")
         if ph == "i" and ev.get("s") not in ("t", "p", "g"):
             problems.append(f"event {i}: instant missing scope")
         if ev.get("tid") not in named_tids:
             problems.append(f"event {i}: tid {ev.get('tid')} has no "
                             "thread_name metadata")
-    if not isinstance(doc.get("metadata"), dict):
+    meta = doc.get("metadata")
+    if not isinstance(meta, dict):
         problems.append("metadata manifest missing")
+    elif "clock_pairs" in meta:
+        pairs = meta["clock_pairs"]
+        if not isinstance(pairs, list) or not all(
+                isinstance(p, list) and len(p) == 2
+                and all(isinstance(x, int) for x in p) for p in pairs):
+            problems.append("metadata clock_pairs must be a list of "
+                            "[perf_counter_ns, time_ns] int pairs")
     return problems
 
 

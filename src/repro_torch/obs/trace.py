@@ -7,8 +7,9 @@ Design constraints (this module sits on the training hot path):
   allocation, no clock read, no lock.
 - **Lock-free when enabled.** Each thread records into its own
   preallocated ring (``threading.local``); the hot path is two
-  ``perf_counter_ns`` reads and one list-slot store per span. The global
-  lock is touched only on first use per thread and at drain time.
+  ``perf_counter_ns`` reads, two ``thread_time_ns`` reads and one
+  list-slot store per span. The global lock is touched only on first use
+  per thread and at drain time.
 - **Nesting-safe.** A per-thread depth counter stamps every span with
   its nesting level, so the exporter can rebuild the flame even though
   spans are recorded at *exit* (children land before parents).
@@ -23,6 +24,17 @@ already has — the ``loss.sync`` / ``trace.sync`` spans wrapping
 ``block_until_ready`` — so device cost per window is read off the sync
 spans, exactly like the engine's steady-state timing contract.
 
+Every span also carries ``cpu_ns``, the recording thread's CPU time
+between enter and exit (``time.thread_time_ns``). Wall time less
+``cpu_ns`` is the time the thread spent off the CPU inside the span:
+waiting for the GIL, a lock, a future or the OS scheduler. A span left
+by an exception is still recorded, tagged ``error=<exception type>``.
+
+``enable()`` and ``disable()`` each stamp a ``(perf_counter_ns,
+time_ns)`` pair (:func:`clock_pairs`), so a timeline in perf_counter time
+can be put on the system clock that ``torch.profiler`` stamps device
+events with, and the two clocks' drift across the session read.
+
 Track ids are thread names by default; a ``track=`` override lets work
 that borrows another thread record on its logical track (the uploader
 commit runs on the prefetch thread but belongs on the "uploader"
@@ -36,7 +48,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 __all__ = ["enable", "disable", "is_enabled", "clear", "span", "event",
-           "records", "dropped", "epoch_ns", "SpanRecord"]
+           "records", "dropped", "epoch_ns", "clock_pairs", "SpanRecord"]
 
 _DEFAULT_CAPACITY = 1 << 14          # records per thread track
 
@@ -47,6 +59,8 @@ _generation = 0                      # bumped by enable()/clear(): stale
 #                                      thread-local rings are abandoned
 _epoch_ns = 0                        # perf_counter_ns at enable/clear
 _tracks: list = []                   # live _Track registry (drain order)
+_clock_pairs: list = []              # (perf_counter_ns, time_ns) stamped
+#                                      by enable() and disable()
 _tls = threading.local()
 
 
@@ -83,7 +97,8 @@ def _get_track() -> _Track:
 @dataclass(frozen=True)
 class SpanRecord:
     """One drained record. ``kind`` is ``"X"`` (complete span) or
-    ``"i"`` (instant event); times are perf_counter_ns."""
+    ``"i"`` (instant event); times are perf_counter_ns. ``cpu_ns`` is the
+    recording thread's CPU time inside the span (0 on instant events)."""
     kind: str
     name: str
     track: str
@@ -91,6 +106,7 @@ class SpanRecord:
     t1_ns: int
     depth: int
     tags: Optional[dict]
+    cpu_ns: int = 0
 
     @property
     def dur_ns(self) -> int:
@@ -112,7 +128,7 @@ _NOOP = _Noop()
 
 
 class _Span:
-    __slots__ = ("name", "track", "tags", "_t0", "_tr")
+    __slots__ = ("name", "track", "tags", "_t0", "_c0", "_tr")
 
     def __init__(self, name: str, track: Optional[str], tags):
         self.name = name
@@ -123,21 +139,30 @@ class _Span:
         tr = _get_track()
         self._tr = tr
         tr.depth += 1
+        # the CPU clock is read inside the wall clock's bracket, so
+        # cpu_ns never takes in the wall reads' own cost
         self._t0 = time.perf_counter_ns()
+        self._c0 = time.thread_time_ns()
         return self
 
     def __exit__(self, *exc):
+        c1 = time.thread_time_ns()
         t1 = time.perf_counter_ns()
         tr = self._tr
         tr.depth -= 1
+        tags = self.tags
+        if exc[0] is not None:
+            tags = {**(tags or {}), "error": exc[0].__name__}
         tr.push(("X", self.name, self.track or tr.thread,
-                 self._t0, t1, tr.depth, self.tags))
+                 self._t0, t1, tr.depth, tags, c1 - self._c0))
         return False
 
 
 def span(name: str, track: Optional[str] = None, **tags):
-    """Context manager timing a named region on the calling thread's
-    track (or the ``track=`` override). ``**tags`` become Perfetto args.
+    """Context manager timing a named region, in wall time and in the
+    calling thread's CPU time, on the calling thread's track (or the
+    ``track=`` override, which moves the lane, not the clocks). ``**tags``
+    become Perfetto args.
     When tracing is disabled this is one bool check and a shared no-op
     object — safe to leave on the hottest paths."""
     if not _enabled:
@@ -154,23 +179,43 @@ def event(name: str, track: Optional[str] = None, **tags) -> None:
     tr.push(("i", name, track or tr.thread, t, t, tr.depth, tags or None))
 
 
+def _clock_pair() -> tuple[int, int]:
+    """(perf_counter_ns, time_ns) read together: of five bracketed reads
+    of the system clock, the tightest, with the perf_counter side at its
+    bracket's middle."""
+    best = None
+    for _ in range(5):
+        a = time.perf_counter_ns()
+        w = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) // 2, w)
+    return best[1], best[2]
+
+
 def enable(capacity: int = _DEFAULT_CAPACITY) -> None:
-    """Start recording (drops anything previously recorded).
+    """Start recording (drops anything previously recorded, clock pairs
+    included, and stamps the session's first clock pair).
     ``capacity`` is the per-thread ring size; overflow overwrites the
     oldest records and is reported by :func:`dropped`."""
-    global _enabled, _capacity, _generation, _epoch_ns
+    global _enabled, _capacity, _generation, _epoch_ns, _clock_pairs
     with _lock:
         _capacity = int(capacity)
         _generation += 1
         _tracks.clear()
+        _clock_pairs = [_clock_pair()]
         _epoch_ns = time.perf_counter_ns()
         _enabled = True
 
 
 def disable() -> None:
-    """Stop recording; already-recorded spans stay drainable."""
+    """Stop recording; already-recorded spans stay drainable. Stamps a
+    clock pair when recording was on."""
     global _enabled
-    _enabled = False
+    with _lock:
+        if _enabled:
+            _clock_pairs.append(_clock_pair())
+        _enabled = False
 
 
 def is_enabled() -> bool:
@@ -189,6 +234,16 @@ def clear() -> None:
 def epoch_ns() -> int:
     """perf_counter_ns origin of the current recording session."""
     return _epoch_ns
+
+
+def clock_pairs() -> list[tuple[int, int]]:
+    """The ``(perf_counter_ns, time_ns)`` pairs stamped by the last
+    :func:`enable` and by the :func:`disable` after it, in that order.
+    ``time_ns - perf_counter_ns`` of a pair is the offset between the two
+    clocks; its change from the first pair to the last is their drift.
+    :func:`clear` keeps them."""
+    with _lock:
+        return list(_clock_pairs)
 
 
 def records() -> list[SpanRecord]:

@@ -35,6 +35,8 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.obs.trace import span as obs_span
+
 
 def next_bucket(n: int, minimum: int = 1) -> int:
     """Smallest power of two ≥ max(n, minimum, 1)."""
@@ -152,6 +154,10 @@ class ShapeBudget:
         ``planner`` defaults to :func:`repro_torch.core.plan_iteration`;
         any callable with the same keyword contract (and raising
         :class:`repro_torch.core.PlanOverflow` on overflow) works.
+
+        Each call of ``planner`` is one ``plan.pass`` span: the probe is
+        tagged ``probe=True``, and a pass that overflows is recorded too
+        (tagged ``error=PlanOverflow``), since its work is thrown away.
         """
         from repro_torch.core.pregather import PlanOverflow
         if planner is None:
@@ -170,7 +176,8 @@ class ShapeBudget:
             # *pattern* and nothing after. (In streamed mode the probe does
             # pay a host feature gather; still once per pattern.)
             self.probes += 1
-            return planner(**plan_kwargs)
+            with obs_span("plan.pass", probe=True):
+                return planner(**plan_kwargs)
 
         if bucket is None:
             seed_bp, seed_rm = self._seed
@@ -203,8 +210,9 @@ class ShapeBudget:
             stream_kw = dict(l_max=self.l_max)
         for _ in range(self.max_rebuckets + 1):
             try:
-                out = planner(**plan_kwargs, batch_pad=self.batch_pad,
-                              r_max=self.r_max, **cache_kw, **stream_kw)
+                with obs_span("plan.pass"):
+                    out = planner(**plan_kwargs, batch_pad=self.batch_pad,
+                                  r_max=self.r_max, **cache_kw, **stream_kw)
                 self.plans_built += 1
                 if getattr(out, "c_max", 0) > self.c_max:
                     self.c_max = int(out.c_max)    # first learn, no rebucket
