@@ -309,11 +309,8 @@ def plan_iteration(graph: CSRGraph,
                                                  seed=sample_seed),
                      jobs, label="plan.sample.job")
         blocks: list[list[TreeBlock]] = [[None] * T for _ in range(n)]
-        true_root_blocks: list[TreeBlock] = []  # unpadded, for accounting
         for (s, t, _, k), blk in zip(jobs, blks):
             blocks[s][t] = _pad_tree_block(blk, batch_pad, pad_vertex[s])
-            if k:
-                true_root_blocks.append(blk)
 
     # ---- gather plans ----
     def shard_needed(s: int, ts: Sequence[int]) -> np.ndarray:
@@ -414,27 +411,21 @@ def plan_iteration(graph: CSRGraph,
             for s in range(n)] if cache_index is not None else None)
 
     # ---- accounting over true (unpadded) roots ----
-    with span("plan.account"):
-        total_rows = sum(b.num_feature_rows() for b in true_root_blocks)
-        uniq_all: list[np.ndarray] = []
-        remote_nodedup = 0
-        step_unique = 0
-        for s in range(n):
-            per_step_ids = []
-            for t in range(T):
-                roots = amat.roots_at(s, t)
-                if roots.size == 0:
-                    continue
-                ids = blocks[s][t].select(np.arange(roots.size)).all_ids()
-                per_step_ids.append(ids)
-            if per_step_ids:
-                allids = np.concatenate(per_step_ids)
-                uniq_all.append(np.unique(allids))
-                for ids in per_step_ids:
-                    u = np.unique(ids)
-                    step_unique += u.size
-                    remote_nodedup += int((owner[u] != s).sum())
-        unique_rows = int(sum(u.size for u in uniq_all))
+    # A true root's tree holds fanout**h positions at hop h, and padding
+    # follows the true roots, so the true ids of (s, t) are prefixes of its
+    # padded hops.
+    total_rows = (sum(k for *_, k in jobs)
+                  * sum(fanout ** h for h in range(num_layers + 1)))
+    marked = _use_mark_count(n, T, owner.size, total_rows)
+    with span("plan.account", path="mark" if marked else "sort"):
+        true_hops: list[list[list[np.ndarray]]] = [[] for _ in range(n)]
+        for s, t, _, k in jobs:
+            if k:
+                true_hops[s].append([ids[:k * fanout ** h] for h, ids
+                                     in enumerate(blocks[s][t].hops)])
+        unique_rows, step_unique, remote_nodedup = (
+            _count_rows_marked if marked else _count_rows_sorted)(
+                true_hops, owner)
 
     return IterationPlan(
         num_shards=n, num_steps=T, fanout=fanout, num_layers=num_layers,
@@ -453,6 +444,80 @@ def plan_iteration(graph: CSRGraph,
         cache_hit_rows=cache_hit_rows, remote_ids=remote_ids,
         streamed=streamed, l_max=l_max_eff,
         feat_local=feat_local, feat_fetch=feat_fetch, tier_stats=tier_stats)
+
+
+# The accounting block counts distinct ids with a stamp array over the
+# vertex space, O(ids + n·(T+1)·V), when the id volume pays for the
+# O(V) passes; otherwise it sorts, O(ids·log ids). Measured on one Intel
+# Xeon core (numpy 2.0; 4 shards, fanout 10, 3 hops, ids drawn 85% inside
+# 2,048-vertex communities), mark against sort, by mark cells per id: at V
+# 2,449,029 and T 4, 43 (1,137,664 ids, the train-sage-products plan)
+# 21.9 ms against 43.2, 172 18.7 against 9.4; at T 1, 17 15.8 against
+# 47.5, 69 7.3 against 8.2; at V 10M and T 4, 44 97.3 against 169.3, 176
+# 79.4 against 38.5; at T 1, 70 47.6 against 42.9. The crossover lies at
+# 60-100 cells per id.
+_MARK_COUNT_CELLS_PER_ID = 64
+
+
+def _use_mark_count(n: int, T: int, V: int, total_ids: int) -> bool:
+    """Count the accounting rows with marks only where the id volume
+    amortizes their O(n·(T+1)·V) passes: a per-step plan with a few
+    thousand ids on a graph of tens of millions of vertices sorts."""
+    cells = n * (T + 1) * V
+    return 0 < cells <= _MARK_COUNT_CELLS_PER_ID * total_ids
+
+
+def _count_rows_sorted(true_hops: list, owner: np.ndarray
+                       ) -> tuple[int, int, int]:
+    """``(unique_rows, step_unique_rows, remote_rows_nodedup)`` of
+    ``true_hops[s]``, a list of one hop list per (s, t) that has true
+    roots, by sorting: the distinct ids of each shard, the distinct ids of
+    each (s, t), and those of the latter that shard s does not own."""
+    unique = step_unique = remote = 0
+    for s, steps in enumerate(true_hops):
+        if not steps:
+            continue
+        per_step = [np.concatenate(hops) for hops in steps]
+        unique += np.unique(np.concatenate(per_step)).size
+        for ids in per_step:
+            u = np.unique(ids)
+            step_unique += u.size
+            remote += int((owner[u] != s).sum())
+    return unique, step_unique, remote
+
+
+def _count_rows_marked(true_hops: list, owner: np.ndarray
+                       ) -> tuple[int, int, int]:
+    """:func:`_count_rows_sorted`'s counts without a sort or a copy of the
+    ids. The k-th (s, t) with true roots stamps its ids with k in one
+    array over the vertex space: after its scatter the cells holding k are
+    its distinct ids, and the cells above the last stamp of the shards
+    before s are shard s's. Stamps only grow within a call, so no mark is
+    ever cleared. The arrays are the call's own (the planner may run on
+    several threads)."""
+    V = owner.size
+    stamps = sum(len(steps) for steps in true_hops)
+    stamp = np.zeros(V, np.min_scalar_type(stamps))
+    sel = np.empty(V, bool)
+    remote_v = np.empty(V, bool)
+    unique = step_unique = remote = 0
+    k = 0
+    for s, steps in enumerate(true_hops):
+        if not steps:
+            continue
+        np.not_equal(owner, s, out=remote_v)
+        first = k
+        for hops in steps:
+            k += 1
+            for ids in hops:
+                stamp[ids] = k
+            np.equal(stamp, k, out=sel)
+            step_unique += int(np.count_nonzero(sel))
+            np.logical_and(sel, remote_v, out=sel)
+            remote += int(np.count_nonzero(sel))
+        np.greater(stamp, first, out=sel)
+        unique += int(np.count_nonzero(sel))
+    return unique, step_unique, remote
 
 
 def _stream_features(store, plan: GatherPlan, local_ids: list, local_idx,
