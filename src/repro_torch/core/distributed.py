@@ -354,15 +354,20 @@ def _shard_grads(params, cfg: GNNConfig, workspace_fn: Callable,
     workspace_fn(t) -> (rows, d) feature workspace for step t (one tensor
     for every step in pregather mode). The per-hop feature gather is the
     ``gather_rows`` CUDA kernel on the card and its plain version on the
-    CPU, dispatched by :mod:`repro_torch.kernels.ops`. Returns (grad
-    leaves in :meth:`GNN.leaves` order, loss sum), both detached."""
+    CPU, dispatched by :mod:`repro_torch.kernels.ops`. Each step's loss
+    runs in a ``model.forward`` span (tagged with the layer kind) and its
+    gradient in a ``model.backward`` span. Returns (grad leaves in
+    :meth:`GNN.leaves` order, loss sum), both detached."""
     leaves = params.leaves()
     gacc, lacc = None, None
     for t in range(labels.shape[0]):
         ws = workspace_fn(t)
         feats = [ops.gather_rows(ws, h[t]) for h in hop_idx]
-        loss, _ = gnn_loss(params, cfg, feats, labels[t], weight=weights[t])
-        g = torch.autograd.grad(loss, leaves)
+        with _obs_trace.span("model.forward", layer=cfg.model):
+            loss, _ = gnn_loss(params, cfg, feats, labels[t],
+                               weight=weights[t])
+        with _obs_trace.span("model.backward"):
+            g = torch.autograd.grad(loss, leaves)
         if gacc is None:                    # 0 + g_0 == g_0 exactly
             gacc, lacc = list(g), loss.detach()
         else:

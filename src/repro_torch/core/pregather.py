@@ -188,6 +188,7 @@ class GatherPlan:
     slot_map: SlotMap
     c_max: int = 0                        # cached-region height (0 = no cache)
     cache_hits: Optional[np.ndarray] = None   # (N,) int64 hit rows per shard
+    dedup: str = "sort"   # the dedup path that built it: "bitmap" or "sort"
 
     def remote_rows_exact(self) -> int:
         """Deduped remote rows actually shipped (misses only)."""
@@ -226,7 +227,8 @@ def build_gather_plan(needed_ids_per_shard: list[np.ndarray],
     V = owner.size
 
     total_ids = sum(np.asarray(ids).size for ids in needed_ids_per_shard)
-    if _use_bitmap_dedup(n, V, total_ids):
+    bitmap = _use_bitmap_dedup(n, V, total_ids)
+    if bitmap:
         # Bitmap dedup: mark[s, v] = shard s touches id v, then clear each
         # id's home cell (local ids need no fetch). np.nonzero walks the
         # bitmap row-major, handing back the dedup set already sorted by
@@ -307,7 +309,8 @@ def build_gather_plan(needed_ids_per_shard: list[np.ndarray],
                       slot_map=SlotMap(starts=starts, ids=u_id,
                                        slots=slots_by_id, num_vertices=V),
                       c_max=c_max,
-                      cache_hits=cache_hits if cache is not None else None)
+                      cache_hits=cache_hits if cache is not None else None,
+                      dedup="bitmap" if bitmap else "sort")
 
 
 def workspace_indices(hops: list[np.ndarray], shard: int,

@@ -321,7 +321,7 @@ def plan_iteration(graph: CSRGraph,
     hop_idx = [np.zeros((n, T, sz), np.int32) for sz in hop_sizes]
 
     if pregather:
-        with span("plan.dedup"):
+        with span("plan.dedup") as dedup_span:
             needed = [shard_needed(s, range(T)) for s in range(n)]
             if streamed:
                 local_ids, l_max_eff = split_local_touched(needed, owner,
@@ -332,6 +332,7 @@ def plan_iteration(graph: CSRGraph,
                 local_ids, l_max_eff = None, 0
                 plan = build_gather_plan(needed, owner, local_idx, n,
                                          local_rows, r_max, cache=cache_index)
+            dedup_span.tag(path=plan.dedup)
         req, step_req = plan.req, None
         r_max_eff = plan.r_max
         c_max_eff = plan.c_max
@@ -366,7 +367,7 @@ def plan_iteration(graph: CSRGraph,
         # across steps remain (that is exactly what §5.2 eliminates). A
         # resident cache still dedups across steps implicitly: a cached
         # vertex is a hit at *every* step that touches it.
-        with span("plan.dedup"):
+        with span("plan.dedup") as dedup_span:
             step_plans = _pmap(
                 executor,
                 lambda t: build_gather_plan([shard_needed(s, [t])
@@ -374,6 +375,9 @@ def plan_iteration(graph: CSRGraph,
                                             owner, local_idx, n, local_rows,
                                             r_max, cache=cache_index),
                 list(range(T)), label="plan.dedup.job")
+            # every step's ids are padded to one size, so one path
+            dedup_span.tag(path="+".join(sorted({p.dedup
+                                                  for p in step_plans})))
         r_max_eff = r_max or max(p.r_max for p in step_plans)
         c_max_eff = step_plans[0].c_max if step_plans else 0
         if any(p.req_count.max() > r_max_eff for p in step_plans):

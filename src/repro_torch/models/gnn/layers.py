@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.obs import trace as _obs_trace
+
 
 def glorot(generator: torch.Generator, shape) -> torch.Tensor:
     fan_in, fan_out = shape[-2], shape[-1]
@@ -77,7 +79,8 @@ def gat_init(generator, d_in, d_out, heads=4):
 
 class GAT(Layer):
     """GAT: softmax(LeakyReLU(a^T[Wh_i || Wh_j])) attention over sampled
-    neighbors (incl. self edge, as DGL does with add_self_loop)."""
+    neighbors (incl. self edge, as DGL does with add_self_loop). Everything
+    after the two projections runs in a ``gat.attention`` span."""
 
     def forward(self, parent, child):
         heads = self.a_src.shape[0]
@@ -85,16 +88,18 @@ class GAT(Layer):
         dh = self.w.shape[1] // heads
         hp = (parent @ self.w).reshape(n, heads, dh)
         hc = (child @ self.w).reshape(n, f, heads, dh)
-        e_src = torch.einsum("nhd,hd->nh", hp, self.a_src)
-        e_dst = torch.einsum("nfhd,hd->nfh", hc, self.a_dst)
-        e_self = F.leaky_relu(
-            e_src + torch.einsum("nhd,hd->nh", hp, self.a_dst), 0.2)
-        e = F.leaky_relu(e_src[:, None, :] + e_dst, 0.2)
-        logits = torch.cat([e_self[:, None, :], e], dim=1)    # (n, f+1, h)
-        alpha = torch.softmax(logits, dim=1)
-        vals = torch.cat([hp[:, None], hc], dim=1)           # (n, f+1, h, dh)
-        out = torch.einsum("nfh,nfhd->nhd", alpha, vals).reshape(n, heads * dh)
-        return F.elu(out)
+        with _obs_trace.span("gat.attention"):
+            e_src = torch.einsum("nhd,hd->nh", hp, self.a_src)
+            e_dst = torch.einsum("nfhd,hd->nfh", hc, self.a_dst)
+            e_self = F.leaky_relu(
+                e_src + torch.einsum("nhd,hd->nh", hp, self.a_dst), 0.2)
+            e = F.leaky_relu(e_src[:, None, :] + e_dst, 0.2)
+            logits = torch.cat([e_self[:, None, :], e], dim=1)  # (n, f+1, h)
+            alpha = torch.softmax(logits, dim=1)
+            vals = torch.cat([hp[:, None], hc], dim=1)     # (n, f+1, h, dh)
+            out = torch.einsum("nfh,nfhd->nhd", alpha,
+                               vals).reshape(n, heads * dh)
+            return F.elu(out)
 
 
 def deepgcn_init(generator, d_in, d_out):

@@ -123,6 +123,9 @@ class _Noop:
     def __exit__(self, *exc):
         return False
 
+    def tag(self, **tags) -> None:
+        pass
+
 
 _NOOP = _Noop()
 
@@ -144,6 +147,10 @@ class _Span:
         self._t0 = time.perf_counter_ns()
         self._c0 = time.thread_time_ns()
         return self
+
+    def tag(self, **tags) -> None:
+        """Add tags known only once the span's work has run."""
+        self.tags = {**(self.tags or {}), **tags}
 
     def __exit__(self, *exc):
         c1 = time.thread_time_ns()
