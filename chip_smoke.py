@@ -9,9 +9,10 @@ holds every kernel it builds against its plain PyTorch version. Imports
 nothing of JAX and nothing of the JAX package. Phases (any failure ends
 the run with a non-zero exit and no result line):
 
-  1. build    nvcc builds src/repro_torch/kernels/csrc/gather_agg.cu and
-              csrc/linattn.cu for sm_90a into build/repro_torch_kernels/
-              (git-ignored), all at once, and prints one line per kernel
+  1. build    nvcc builds src/repro_torch/kernels/csrc/gather_agg.cu,
+              csrc/linattn.cu and csrc/sample_tree.cu for sm_90a into
+              build/repro_torch_kernels/ (git-ignored), all at once, and
+              prints one line per kernel
               instance: registers, static shared memory, stack and spills.
               A gather_agg instance that spills fails the run.
   2. kernels  gather_rows at every hop of a batch_pad=64 serve rung (the
@@ -44,7 +45,13 @@ the run with a non-zero exit and no result line):
               3xTF32 at the TF32 tensor-core peak. gather_agg runs on no
               path, as in the JAX package: it is only gated and timed, here
               and at the training and P3 shapes, outside every window that
-              counts launches.
+              counts launches. sample_tree on a train-sage-products plan
+              (1,024 roots, 3 hops of fanout 10, 1,137,664 ids) over a
+              random CSR of that cell's size with degree-0 vertices:
+              bitwise the host sampler and its plain version on the card,
+              then the three launches' device time beside the plain
+              version's and the bound, the planner's whole call (launches,
+              copy to pinned memory, sync) and the host sampler's 16 jobs.
   3. serve    GNNServer with GraphSAGE at the paper's settings (3 layers,
               hidden 128, fanout 10) on the synthetic products graph at
               full scale (245,000 vertices, 4-way community partition),
@@ -68,8 +75,9 @@ the run with a non-zero exit and no result line):
               port on the CPU (plain gather_rows) within 1e-4 of each
               leaf's largest value; then fit for 2 epochs of 8 iterations,
               gating finite losses, no retraces after epoch 0 beyond one
-              per new merge pattern, and gather_rows launched once per
-              (shard, step, hop) of every iteration. Prints losses, steady
+              per new merge pattern, gather_rows launched once per
+              (shard, step, hop) of every iteration and sample_tree three
+              times per plan pass. Prints losses, steady
               ms/iter, dispatch and plan ms/iter, rows fetched per
               iteration, and one more epoch under torch.profiler (device
               busy share, time by kernel). TF32 stays off.
@@ -262,9 +270,14 @@ summed over the paths, per path under ``launches_by_path`` (the dry
 runs' as gnn_dryrun_256 and gnn_dryrun_512, counted in their own
 processes over the measured call, and the transformer's as lm_dryrun,
 the (1, 1) step's and each record's launches), the
-transformer phases' paths with 0 where no kernel runs; gather_agg's
+transformer phases' paths with 0 where no kernel runs; sample_tree's on
+every GNN path, held to 3 per plan pass on each Trainer's fit (its
+budget's probes, plans built and overflowed passes; the ckpt, stream
+and mesh phases' runs under their own path names) and to 0 on serving,
+precompute, P3 and the dry runs; gather_agg's
 timings at the P3 shape, every shape's under ``shapes``; with --world
-N, the mesh phase's summary instead), the card's name and power limit,
+N, the mesh phase's summary instead, where every rank's straight,
+merging and faulted fits hold sample_tree to 3 per plan pass), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--requests 4096] [--qps 1000] [--seed 0]
@@ -311,9 +324,11 @@ from repro_torch.graph.partition import (community_partition,  # noqa: E402
                                          shard_features)
 from repro_torch.graph.sampler import (micrograph_split,  # noqa: E402
                                        sample_tree_block)
+from repro_torch.graph.structs import CSRGraph  # noqa: E402
 from repro_torch.kernels import gather_agg as ga  # noqa: E402
 from repro_torch.kernels import linattn as la  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import sample_tree as sk  # noqa: E402
 from repro_torch.launch import dryrun_gnn  # noqa: E402
 from repro_torch.launch.serve import LLMServer, generate  # noqa: E402
 from repro_torch.launch.train import (accumulated_grads,  # noqa: E402
@@ -347,6 +362,12 @@ F32_FLOP_PER_S = 67e12             # H100 SXM float32 outside tensor cores
 TF32_FLOP_PER_S = 495e12           # H100 SXM TF32 tensor cores, dense
 BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor cores, dense
 SRC = "src/repro_torch/kernels/csrc/gather_agg.cu"
+ST_SRC = "src/repro_torch/kernels/csrc/sample_tree.cu"
+# [kernels] sample_tree: a train-sage-products plan (4 models x 256 roots,
+# 3 hops of fanout 10) over a random CSR of that cell's size: its 52.11
+# entries per vertex, with a tenth of the vertices at degree 0
+SAMPLE_V, SAMPLE_DEG, SAMPLE_ROOTS, SAMPLE_JOBS = (2_449_029, 52.11 / 0.9,
+                                                  1024, 16)
 LA_SRC = "src/repro_torch/kernels/csrc/linattn.cu"
 LA_TOL = 5e-4      # tests/test_kernels.py: chunked kernel vs plain, f32
 # a constant decay below linattn's domain (0.5, 1], and the shapes it is
@@ -562,11 +583,11 @@ def ptxas_summary(msgs: str) -> list:
 
 
 def phase_build() -> None:
-    """Both libraries at once: one nvcc per source, started together."""
+    """Every library at once: one nvcc per source, started together."""
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        futs = [pool.submit(mod.build, True) for mod in (ga, la)]
+    with ThreadPoolExecutor(3) as pool:
+        futs = [pool.submit(mod.build, True) for mod in (ga, la, sk)]
         built = [f.result() for f in futs]
     spilled = []
     for path, msgs in built:
@@ -581,7 +602,7 @@ def phase_build() -> None:
                          f"{k['spill_loads']} B")
             if "gather_agg_kernel" in k["name"] and k["spills"]:
                 spilled.append(k["name"])
-    log("build", f"both libraries in {time.perf_counter() - t0:.2f} s; "
+    log("build", f"all libraries in {time.perf_counter() - t0:.2f} s; "
                  f"linattn takes {la.smem_bytes()} B of dynamic shared "
                  f"memory per block")
     if spilled:
@@ -731,6 +752,14 @@ def check_gather_agg_cases(seed: int) -> float:
 
 AGG_SHAPES: dict = {}   # shape name -> reduce -> timings (time_gather_agg)
 AGG_BY_PATH: dict = {}  # path -> gather_agg launches in its window
+SAMPLE_BY_PATH: dict = {}   # path -> sample_tree launches in its window
+
+
+def reset_launches() -> None:
+    """At the start of a path's counted window: every GNN kernel's counts
+    zeroed."""
+    ga.reset_launches()
+    sk.reset_launches()
 
 
 def window_end(path: str) -> int:
@@ -738,6 +767,27 @@ def window_end(path: str) -> int:
     and gather_agg's, which no path calls, kept for the kernels line."""
     AGG_BY_PATH[path] = ga.launches["gather_agg"]
     return ga.launches["gather_rows"]
+
+
+def plan_passes(trainer) -> int:
+    """The planner passes a Trainer has made: its budget's probes, plans
+    built and overflowed passes. Each draws its trees once."""
+    b = trainer.budget
+    return b.probes + b.plans_built + b.rebuckets
+
+
+def sample_end(path: str, passes: int, layers: int) -> str:
+    """At the end of a path's counted window: sample_tree's launches in
+    it, recorded for the kernels line and held to one per hop of every
+    plan pass (``passes`` 0 on a path that builds no Trainer plan).
+    Returns the log's words."""
+    got = SAMPLE_BY_PATH[path] = sk.launches["sample_tree"]
+    want = layers * passes
+    words = (f"sample_tree launches {got} (want {want} = {layers} x "
+             f"{passes} plan passes)")
+    if got != want:
+        raise AssertionError(f"{path}: {words}")
+    return words
 
 
 def time_gather_agg(phase: str, what: str, table: torch.Tensor,
@@ -800,6 +850,95 @@ def check_gather_agg(ws: torch.Tensor, hop_idx: list, seed: int) -> float:
                    f" ms against the first design's {AGG_FIRST_MS} ms (same "
                    f"shape, NVIDIA H100 80GB HBM3, 700 W, PERF.md)")
     return max(err, timed["mean"]["max_abs_err"])
+
+
+def sample_bytes(k: int, fanout: int, layers: int) -> int:
+    """The least bytes of drawing ``layers`` hops below ``k`` roots: each
+    frontier id (8 B) and its two indptr words (16 B) read once, each
+    neighbour id read (4 B) and each id drawn written (8 B) once."""
+    return sum(k * fanout ** h * (8 + 16 + fanout * (4 + 8))
+               for h in range(layers))
+
+
+def check_sample_tree(seed: int) -> dict:
+    """sample_tree on a train-sage-products plan: bitwise the host sampler
+    and the plain version on the card, then timed (see the module doc)."""
+    rng = np.random.default_rng(seed)
+    deg = rng.poisson(SAMPLE_DEG, SAMPLE_V)
+    deg[rng.random(SAMPLE_V) < 0.1] = 0
+    indptr = np.zeros(SAMPLE_V + 1, np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    graph = CSRGraph(indptr=indptr, indices=rng.integers(
+        0, SAMPLE_V, int(indptr[-1]), dtype=np.int32))
+    csr = sk.DeviceCSR.from_graph(graph, DEVICE)
+    roots = rng.choice(SAMPLE_V, SAMPLE_ROOTS, replace=False)
+    roots[:8] = np.nonzero(deg == 0)[0][:8]
+    s = 2 ** 31 + seed
+    layers, f = 3, 10
+    sk.reset_launches()
+    hops = csr.sample_trees(roots, layers, f, s)
+    if sk.launches["sample_tree"] != layers:
+        raise AssertionError(f"sample_trees launched "
+                             f"{sk.launches['sample_tree']} times, want "
+                             f"{layers}")
+    want = sample_tree_block(graph, roots, layers, f, seed=s).hops
+    plain = [torch.from_numpy(roots).to(DEVICE)]
+    for h in range(layers):
+        plain.append(sk.sample_hop_ref(csr.indptr, csr.indices, plain[-1],
+                                       f, h, s))
+    for h in range(layers + 1):
+        if not (np.array_equal(hops[h], want[h])
+                and np.array_equal(plain[h].cpu().numpy(), want[h])):
+            raise AssertionError(f"sample_tree differs from the host "
+                                 f"sampler at hop {h}")
+    sizes = [SAMPLE_ROOTS * f ** h for h in range(layers + 1)]
+    ends = np.cumsum(sizes).tolist()
+    buf = torch.empty(ends[-1], dtype=torch.int64, device=DEVICE)
+    buf[:SAMPLE_ROOTS] = plain[0]
+
+    def kernel():
+        for h in range(layers):
+            sk.sample_hop(csr.indptr, csr.indices,
+                          buf[ends[h] - sizes[h]:ends[h]], f, h, s,
+                          out=buf[ends[h]:ends[h + 1]])
+
+    def plain_version():
+        x = plain[0]
+        for h in range(layers):
+            x = sk.sample_hop_ref(csr.indptr, csr.indices, x, f, h, s)
+
+    ms = device_ms(kernel)
+    pms = call_ms(plain_version)
+    calls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        csr.sample_trees(roots, layers, f, s)
+        calls.append(1e3 * (time.perf_counter() - t0))
+    call = float(np.median(calls))
+    jobs = np.split(roots, SAMPLE_JOBS)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        for r in jobs:
+            sample_tree_block(graph, r, layers, f, seed=s)
+    host = 1e3 * (time.perf_counter() - t0) / 3
+    nbytes = sample_bytes(SAMPLE_ROOTS, f, layers)
+    b, by = bound_ms(nbytes)
+    log("kernels", f"sample_tree train-sage-products plan: CSR "
+                   f"({SAMPLE_V}, {graph.num_edges} entries), "
+                   f"{SAMPLE_ROOTS} roots, {layers} hops of fanout {f}, "
+                   f"{ends[-1]} ids, seed {s}: bitwise the host sampler and "
+                   f"the plain version; device {ms:.5f} ms for the "
+                   f"{layers} launches (plain {pms:.5f} ms); moves {nbytes}"
+                   f" B, bound {b:.5f} ms ({by}), {100 * b / ms:.1f}% of it;"
+                   f" the planner's call (launches, {8 * ends[-1]} B to "
+                   f"pinned memory, sync) {call:.3f} ms from the host (median"
+                   f" of 20); the "
+                   f"host sampler's {SAMPLE_JOBS} jobs {host:.2f} ms")
+    del csr, buf, plain
+    free_card()
+    return dict(name="sample_tree", route="cuda", source=ST_SRC,
+                replaces=None, max_abs_err=0.0, bound_by=by, ms=ms,
+                plain_ms=pms, bound_ms=b, call_ms=call, host_ms=host)
 
 
 def gather_agg_entry(err: float) -> dict:
@@ -1014,10 +1153,11 @@ def phase_serve(ds, store, cfg, seed: int, requests: int,
     vertices = zipf_vertices(rng, ds.num_vertices, requests)
 
     # the main path: counts are zeroed just before it and read just after
-    ga.reset_launches()
+    reset_launches()
     batches0 = srv.fresh_batches
     tickets, results = open_loop(srv, vertices, qps)
     launches = dict(ga.launches)
+    sampled = sample_end("gnn_serve", 0, cfg.num_layers)
     batches = srv.fresh_batches - batches0
 
     lat = np.array([1e3 * t.latency_s() for t in tickets])
@@ -1034,7 +1174,7 @@ def phase_serve(ds, store, cfg, seed: int, requests: int,
                  f"cached after {st['cache_installs']} installs; retraces "
                  f"since warmup {st['retraces_since_warmup']}")
     log("serve", f"launches during the stream: {launches} for {batches} "
-                 f"micro-batches")
+                 f"micro-batches; {sampled}")
     if st["retraces_since_warmup"] != 0:
         raise AssertionError("serving retraced after warmup")
     if batches == 0 or \
@@ -1251,12 +1391,15 @@ def phase_train(ds, store, part, cfg, seed: int) -> int:
     del plan
 
     # the main path: counts are zeroed just before it and read just after
-    ga.reset_launches()
+    reset_launches()
+    passes = plan_passes(trainer)
     t0 = time.perf_counter()
     stats = trainer.fit(TRAIN_EPOCHS, TRAIN_ITERS,
                         batch_per_model=TRAIN_BATCH)
     wall = time.perf_counter() - t0
     launches = window_end("gnn_train")
+    sampled = sample_end("gnn_train", plan_passes(trainer) - passes,
+                         cfg.num_layers)
     want = sum((cfg.num_layers + 1) * SHARDS * st.num_steps * TRAIN_ITERS
                for st in stats)
     seen, retraces = set(), 0
@@ -1282,7 +1425,7 @@ def phase_train(ds, store, part, cfg, seed: int) -> int:
                  f"{retraces}; budget {trainer.budget.signature()} with "
                  f"{trainer.budget.rebuckets} rebuckets; uploads "
                  f"{trainer._uploader.uploads}, shape changes "
-                 f"{trainer._uploader.shape_changes}")
+                 f"{trainer._uploader.shape_changes}; {sampled}")
     if not all(np.isfinite(st.loss) for st in stats):
         raise AssertionError(f"non-finite loss: {[s.loss for s in stats]}")
     if retraces != 0:
@@ -1449,10 +1592,15 @@ def phase_ckpt(ds, store, part, cfg, seed: int, requests: int,
                 f"{ta.resilience.membership}, mode "
                 f"{ta.resilience.membership_mode}), checkpoints in "
                 f"{os.path.relpath(base, ROOT)}/")
+    reset_launches()
+    passes = plan_passes(ta)
     t0 = time.perf_counter()
     sa = ta.fit(CKPT_EPOCHS, CKPT_ITERS, batch_per_model=TRAIN_BATCH)
+    window_end("gnn_train_ckpt")
+    sampled = sample_end("gnn_train_ckpt", plan_passes(ta) - passes,
+                         cfg.num_layers)
     log_fit("straight", sa)
-    log("ckpt", f"straight run {time.perf_counter() - t0:.2f} s")
+    log("ckpt", f"straight run {time.perf_counter() - t0:.2f} s; {sampled}")
     if not all(np.isfinite(st.loss) for st in sa):
         raise AssertionError(f"non-finite loss: {[s.loss for s in sa]}")
     checkpoint_cost(ta, dirs["probe"])
@@ -1465,17 +1613,22 @@ def phase_ckpt(ds, store, part, cfg, seed: int, requests: int,
         FaultSpec("peer_death", epoch=2, it=1, shard=2),
         FaultSpec("nan_loss", epoch=2, it=4)], seed=seed, name="ckpt")
     tb = ckpt_trainer(ds, store, part, cfg, seed, dirs["faulted"])
-    ga.reset_launches()
+    reset_launches()
+    passes = plan_passes(tb)
     t0 = time.perf_counter()
     with fp.active():
         sb = tb.fit(CKPT_EPOCHS, CKPT_ITERS, batch_per_model=TRAIN_BATCH)
     wall_b = time.perf_counter() - t0
     launches["gnn_train_faulted"] = window_end("gnn_train_faulted")
+    # the replays and the shrunk world's plans are plan passes too
+    sampled = sample_end("gnn_train_faulted", plan_passes(tb) - passes,
+                         cfg.num_layers)
     log_fit("faulted", sb)
     kinds = sorted({k for k, *_ in fp.fired})
     log("ckpt", f"faulted run {wall_b:.2f} s; fired {fp.fired}; "
                 f"gather_rows launches {launches['gnn_train_faulted']} "
-                f"(a clean run launches {per_run}; replays add more)")
+                f"(a clean run launches {per_run}; replays add more); "
+                f"{sampled}")
     for r in tb.recovery_log:
         same = [st for st in sa if st.epoch == r["epoch"]][0]
         log("ckpt", f"recovery in epoch {r['epoch']} after attempt "
@@ -1514,16 +1667,25 @@ def phase_ckpt(ds, store, part, cfg, seed: int, requests: int,
     with open(os.path.join(dirs["resume"], "latest"), "w") as f:
         f.write(str(step1))
     tc = ckpt_trainer(ds, store, part, cfg, seed, dirs["resume"])
+    # resuming restores the budget's rebuckets from the checkpoint
+    with open(os.path.join(dirs["resume"], f"step-{step1:08d}.json")) as f:
+        passes = plan_passes(tc) + int(
+            json.load(f)["extra"]["budget_state"]["rebuckets"])
+    reset_launches()
     t0 = time.perf_counter()
     sc = tc.fit(CKPT_EPOCHS, CKPT_ITERS, batch_per_model=TRAIN_BATCH,
                 resume=True)
+    window_end("gnn_train_resumed")
+    sampled = sample_end("gnn_train_resumed", plan_passes(tc) - passes,
+                         cfg.num_layers)
     log_fit("resumed", sc)
     ok = [s.epoch for s in sc] == [CKPT_EPOCHS - 1] \
         and sc[0].loss == sa[-1].loss and same_state(ta, tc)
     log("ckpt", f"resumed at step {step1} in {time.perf_counter() - t0:.2f}"
                 f" s: epoch {[s.epoch for s in sc]} loss and final state "
                 f"bitwise the straight run's {ok}; budget probes "
-                f"{tc.budget.probes}, new signatures {sc[0].traces}")
+                f"{tc.budget.probes}, new signatures {sc[0].traces}; "
+                f"{sampled}")
     if not ok:
         raise AssertionError("the resumed run is not bitwise the straight "
                              "run")
@@ -1550,7 +1712,7 @@ def phase_ckpt(ds, store, part, cfg, seed: int, requests: int,
     n = ds.num_vertices
     step = ta.global_step
     chunks = -(-n // PRECOMPUTE_CHUNK)
-    ga.reset_launches()
+    reset_launches()
     trace.clear()
     trace.enable()
     t0 = time.perf_counter()
@@ -1562,6 +1724,7 @@ def phase_ckpt(ds, store, part, cfg, seed: int, requests: int,
         trace.disable()
     wall = time.perf_counter() - t0
     launches["gnn_precompute"] = window_end("gnn_precompute")
+    sampled = sample_end("gnn_precompute", 0, cfg.num_layers)
     spans: dict = {}
     for r in trace.records():
         if r.kind == "X":
@@ -1575,7 +1738,7 @@ def phase_ckpt(ds, store, part, cfg, seed: int, requests: int,
                 f"forward + logits back {fwd_ms:.3f} ms; table save "
                 f"{spans.get('ckpt.save', 0) / 1e6:.1f} ms; gather_rows "
                 f"launches {launches['gnn_precompute']} (want "
-                f"{chunks * layers})")
+                f"{chunks * layers}); {sampled}")
     if launches["gnn_precompute"] != chunks * layers:
         raise AssertionError(f"precompute launched gather_rows "
                              f"{launches['gnn_precompute']} times, want "
@@ -1610,10 +1773,11 @@ def phase_ckpt(ds, store, part, cfg, seed: int, requests: int,
                     params_step=step, device="cuda")
     w = srv.warmup()
     vertices = zipf_vertices(np.random.default_rng(seed + 2), n, requests)
-    ga.reset_launches()
+    reset_launches()
     fresh0, pre0 = srv.fresh_batches, srv.precomputed_hits
     tickets, results = open_loop(srv, vertices, qps)
     launches["gnn_serve_auto"] = window_end("gnn_serve_auto")
+    sampled = sample_end("gnn_serve_auto", 0, cfg.num_layers)
     st = srv.stats()
     fresh_batches = srv.fresh_batches - fresh0
     hits = srv.precomputed_hits - pre0
@@ -1629,7 +1793,8 @@ def phase_ckpt(ds, store, part, cfg, seed: int, requests: int,
                 f"table, {hits} table rows read, {fresh_batches} fresh "
                 f"micro-batches with {launches['gnn_serve_auto']} gather_rows"
                 f" launches; retraces since warmup "
-                f"{st['retraces_since_warmup']}, errors {st['errors']}")
+                f"{st['retraces_since_warmup']}, errors {st['errors']}; "
+                f"{sampled}")
     if hits <= 0 or st["precomputed_hits"] <= 0:
         raise AssertionError("auto mode answered nothing from the table")
     if fresh_batches == 0 \
@@ -1694,10 +1859,11 @@ def phase_p3(ds, store, part, cfg, seed: int) -> int:
     del hops
 
     # the main path: counts are zeroed just before it and read just after
-    ga.reset_launches()
+    reset_launches()
     g3, l3 = run_p3_iteration(params, feats, plan, cfg)
     torch.cuda.synchronize()
     launches = window_end("p3_train")
+    sampled = sample_end("p3_train", 0, cfg.num_layers)
     gm, lm = engine.run_iteration(params, table, mc, cfg)
     t0 = time.perf_counter()
     g3c, l3c = run_p3_iteration(copy.deepcopy(params).cpu(), ds.features,
@@ -1714,7 +1880,7 @@ def phase_p3(ds, store, part, cfg, seed: int) -> int:
               f"{[float(f'{e:.3g}') for e, _ in e_mc]} (rtol "
               f"{P3_TOL['rtol']}, atol {P3_TOL['atol']}); gather_rows "
               f"launches {launches} (want {layers * SHARDS} = (layers+1) x "
-              f"shards)")
+              f"shards); {sampled}")
     for i, (err, scale) in enumerate(e_cpu):
         if err > TRAIN_RTOL * scale:
             raise AssertionError(f"P3 grad leaf {i}: CUDA vs CPU max abs "
@@ -1826,11 +1992,16 @@ def phase_stream(ds, store, part, cfg, seed: int) -> int:
 
     # 1. resident baseline
     tr = stream_trainer(ds, store, part, cfg, seed)
+    reset_launches()
+    passes = plan_passes(tr)
     t0 = time.perf_counter()
     sr = tr.fit(*args, batch_per_model=TRAIN_BATCH)
+    window_end("gnn_train_resident")
+    sampled = sample_end("gnn_train_resident", plan_passes(tr) - passes,
+                         cfg.num_layers)
     steady = [round(1e3 * s.steady_time_s / STREAM_ITERS, 2) for s in sr]
     log("stream", f"resident run {time.perf_counter() - t0:.2f} s; steady "
-                  f"{steady} ms/iter")
+                  f"{steady} ms/iter; {sampled}")
 
     # 2. streamed straight run, traced — counts zeroed just before it
     sp, spill_s = spill(ds, part, os.path.join(base, "straight"), budget)
@@ -1844,7 +2015,8 @@ def phase_stream(ds, store, part, cfg, seed: int) -> int:
                   f"merging off, spans on")
     trace.clear()
     trace.enable()
-    ga.reset_launches()
+    reset_launches()
+    passes = plan_passes(ts)
     t0 = time.perf_counter()
     try:
         ss = ts.fit(*args, batch_per_model=TRAIN_BATCH)
@@ -1852,6 +2024,8 @@ def phase_stream(ds, store, part, cfg, seed: int) -> int:
         trace.disable()
     wall = time.perf_counter() - t0
     launches = window_end("gnn_train_streamed")
+    sampled = sample_end("gnn_train_streamed", plan_passes(ts) - passes,
+                         cfg.num_layers)
     log_stream("streamed", ss)
     path = export_chrome_trace(os.path.join(base, "streamed_trace.json"),
                                manifest=run_manifest(seed=seed))
@@ -1868,7 +2042,7 @@ def phase_stream(ds, store, part, cfg, seed: int) -> int:
                   f"{launches} (want {per_run} = (layers+1) x shards x "
                   f"steps x iterations); new signatures after epoch 0 "
                   f"{retraces}; l_max {ts.budget.l_max}, r_max "
-                  f"{ts.budget.r_max}")
+                  f"{ts.budget.r_max}; {sampled}")
     log("stream", f"trace {os.path.relpath(path, ROOT)}: "
                   f"{doc['otherData']['span_records']} records, "
                   f"{sum(1 for e in doc['traceEvents'] if e['ph'] == 'X')} "
@@ -1892,11 +2066,15 @@ def phase_stream(ds, store, part, cfg, seed: int) -> int:
     fp = FaultPlan.recoverable(seed=3)
     sf_store, _ = spill(ds, part, os.path.join(base, "faulted"), budget)
     tf = stream_trainer(ds, sf_store, part, cfg, seed)
-    ga.reset_launches()
+    reset_launches()
+    passes = plan_passes(tf)
     t0 = time.perf_counter()
     with fp.active():
         sf = tf.fit(*args, batch_per_model=TRAIN_BATCH)
     wall_f = time.perf_counter() - t0
+    window_end("gnn_train_streamed_faulted")
+    sampled = sample_end("gnn_train_streamed_faulted",
+                         plan_passes(tf) - passes, cfg.num_layers)
     log_stream("faulted", sf)
     kinds = sorted({k for k, *_ in fp.fired})
     rollbacks = sum(s.rollbacks for s in sf)
@@ -1909,7 +2087,7 @@ def phase_stream(ds, store, part, cfg, seed: int) -> int:
                   f"{bitwise_f}; kinds fired {kinds}; rollbacks {rollbacks};"
                   f" crc failures {crc}, repaired rows {repaired}; "
                   f"gather_rows launches {ga.launches['gather_rows']} "
-                  f"(replays add to {per_run})")
+                  f"(replays add to {per_run}); {sampled}")
     if kinds != sorted({sp.kind for sp in fp.specs}) or len(kinds) != 5:
         raise AssertionError(f"fault kinds fired {kinds}")
     if not bitwise_f:
@@ -2273,16 +2451,25 @@ def phase_mesh1(ds, cfg, seed: int) -> int:
                         True)
 
         # the main path: counts zeroed just before the mesh fit, read after
-        ga.reset_launches()
+        reset_launches()
+        passes = plan_passes(tm)
         t0 = time.perf_counter()
         sm = tm.fit(MESH_EPOCHS, MESH_ITERS, batch_per_model=TRAIN_BATCH)
         wall_m = time.perf_counter() - t0
         launches = window_end("gnn_train_mesh")
+        sampled = sample_end("gnn_train_mesh", plan_passes(tm) - passes,
+                             cfg.num_layers)
         mesh_fit_log("sharded", sm, MESH_ITERS)
         te = mesh_trainer(ds, store, part, cfg, seed)
+        reset_launches()
+        passes = plan_passes(te)
         t0 = time.perf_counter()
         se = te.fit(MESH_EPOCHS, MESH_ITERS, batch_per_model=TRAIN_BATCH)
         wall_e = time.perf_counter() - t0
+        window_end("gnn_train_mesh_emulated")
+        sampled += "; emulated: " + sample_end(
+            "gnn_train_mesh_emulated", plan_passes(te) - passes,
+            cfg.num_layers)
         mesh_fit_log("emulated", se, MESH_ITERS)
         want = sum((cfg.num_layers + 1) * st.num_steps * MESH_ITERS
                    for st in sm)
@@ -2295,7 +2482,8 @@ def phase_mesh1(ds, cfg, seed: int) -> int:
                     f"gather_rows launches {launches} (want {want} = "
                     f"(layers+1) x T x iterations); new signatures after "
                     f"epoch 0 {new_sigs}; trace kinds "
-                    f"{sorted({r[0] for r in engine.trace_log()})}")
+                    f"{sorted({r[0] for r in engine.trace_log()})}; "
+                    f"{sampled}")
         if not bitwise:
             raise AssertionError("the 1-rank mesh fit is not bitwise the "
                                  "emulated fit")
@@ -2344,11 +2532,16 @@ def mesh_rank_main(rank: int, world: int, seed: int, base: str) -> None:
         layers = cfg.num_layers + 1
 
         # the straight sharded fit: counts zeroed just before, read after
-        ga.reset_launches()
+        reset_launches()
+        passes = plan_passes(ts)
         t0 = time.perf_counter()
         ss = ts.fit(MESH4_EPOCHS, MESH_ITERS, batch_per_model=TRAIN_BATCH)
         wall = time.perf_counter() - t0
         launches = window_end("gnn_train_mesh")
+        # sample_tree: one launch per hop of every plan pass on this rank
+        sampled = [sk.launches["sample_tree"],
+                   cfg.num_layers * (plan_passes(ts) - passes)]
+        SAMPLE_BY_PATH["gnn_train_mesh"] = sampled[0]
         want = sum(layers * st.num_steps * MESH_ITERS for st in ss)
         if lead:
             mesh_fit_log("sharded", ss, MESH_ITERS)
@@ -2370,7 +2563,8 @@ def mesh_rank_main(rank: int, world: int, seed: int, base: str) -> None:
         dist.all_gather(every, sums, group=engine.mesh_group(mesh))
         same_params = all(torch.equal(every[0], s) for s in every)
         counts = engine.agree_max([rel, launches != want, launches,
-                                   AGG_BY_PATH["gnn_train_mesh"]], mesh)
+                                   AGG_BY_PATH["gnn_train_mesh"],
+                                   sampled[0] != sampled[1]], mesh)
         if lead:
             log("mesh", f"Trainer(mesh) fit {MESH4_EPOCHS}x{MESH_ITERS} in "
                         f"{wall:.2f} s: losses vs the emulated Trainer's "
@@ -2381,7 +2575,10 @@ def mesh_rank_main(rank: int, world: int, seed: int, base: str) -> None:
                         f"gather_rows launches per rank {launches} (want "
                         f"{want} = (layers+1) x T x iterations; worst rank "
                         f"{int(counts[2])}); gather_agg launches, worst "
-                        f"rank {int(counts[3])}")
+                        f"rank {int(counts[3])}; sample_tree launches on "
+                        f"rank 0 {sampled[0]} (want {sampled[1]} = "
+                        f"{cfg.num_layers} x plan passes), every rank as "
+                        f"wanted {not counts[4]}")
         if counts[0] > MESH_FIT_RTOL:
             raise AssertionError(f"mesh fit losses vs emulated rel err "
                                  f"{counts[0]} > {MESH_FIT_RTOL}")
@@ -2393,13 +2590,21 @@ def mesh_rank_main(rank: int, world: int, seed: int, base: str) -> None:
         if counts[3]:
             raise AssertionError(f"the sharded fit launched gather_agg "
                                  f"{int(counts[3])} times on a rank")
+        if counts[4]:
+            raise AssertionError(f"sample_tree launched {sampled[0]} times "
+                                 f"over {sampled[1] // cfg.num_layers} plan"
+                                 f" passes on a rank")
         cost = mesh_cost(mesh, world, ts, cfg, lead, emulated=te)
         del te
 
         # merging on: every rank must walk the same merge patterns
         tm = mesh_trainer(ds, store, part, cfg, seed, mesh=mesh,
                           merging=True)
+        sk.reset_launches()
+        passes = plan_passes(tm)
         sm = tm.fit(MESH4_EPOCHS, MESH_ITERS, batch_per_model=TRAIN_BATCH)
+        sampled_m = (sk.launches["sample_tree"]
+                     != cfg.num_layers * (plan_passes(tm) - passes))
         pat = torch.tensor([st.num_steps for st in sm], device="cuda")
         every = [torch.empty_like(pat) for _ in range(world)]
         dist.all_gather(every, pat, group=engine.mesh_group(mesh))
@@ -2420,27 +2625,39 @@ def mesh_rank_main(rank: int, world: int, seed: int, base: str) -> None:
             FaultSpec("comm_drop", epoch=1, it=4, drops=1),
             FaultSpec("nan_loss", epoch=2, it=4)], seed=seed, name="mesh")
         tf = mesh_trainer(ds, store, part, cfg, seed, mesh=mesh)
+        sk.reset_launches()
+        passes = plan_passes(tf)
         with fp.active():
             sf = tf.fit(MESH4_EPOCHS, MESH_ITERS,
                         batch_per_model=TRAIN_BATCH)
+        sampled_f = (sk.launches["sample_tree"]
+                     != cfg.num_layers * (plan_passes(tf) - passes))
         kinds = sorted({k for k, *_ in fp.fired})
         bitwise = [a.loss for a in ss] == [b.loss for b in sf] \
             and same_state(ts, tf)
         bad = engine.agree_max([not bitwise,
-                                kinds != sorted({s.kind for s in fp.specs})],
-                               mesh)
+                                kinds != sorted({s.kind for s in fp.specs}),
+                                sampled_m, sampled_f], mesh)
         if lead:
             mesh_fit_log("faulted", sf, MESH_ITERS)
             log("mesh", f"faulted sharded run: fired {fp.fired}; losses, "
                         f"parameters and moments bitwise the straight "
                         f"sharded run on every rank {not bad[0]}; rollbacks "
-                        f"{sum(st.rollbacks for st in sf)}")
+                        f"{sum(st.rollbacks for st in sf)}; sample_tree "
+                        f"launches {cfg.num_layers} per plan pass on every "
+                        f"rank, merging {not bad[2]}, faulted {not bad[3]}")
         if bad[0] or bad[1]:
             raise AssertionError(f"faulted sharded run: bitwise "
                                  f"{not bad[0]}, kinds {kinds}")
+        if bad[2] or bad[3]:
+            raise AssertionError(f"sample_tree did not launch "
+                                 f"{cfg.num_layers} times per plan pass on "
+                                 f"a rank: merging {bool(bad[2])}, faulted "
+                                 f"{bool(bad[3])}")
         if lead:
             summary = dict(world=world, launches_per_rank=launches,
                            gather_agg_launches=int(counts[3]),
+                           sample_tree_launches=sampled[0],
                            fit_rel_err=counts[0], cost=cost,
                            steady_ms=[1e3 * st.steady_time_s / MESH_ITERS
                                       for st in ss],
@@ -2618,6 +2835,8 @@ def dryrun_world(n: int, seed: int) -> int:
     want = (L + 1) * n
     got = rec["launches"]["gather_rows"]
     AGG_BY_PATH[path] = rec["launches"]["gather_agg"]
+    # the measured call runs a plan built beforehand: it samples nothing
+    SAMPLE_BY_PATH[path] = rec["launches"]["sample_tree"]
     log("dryrun", f"{n} shards ({rec['mesh']}, T {rec['world']}, "
                   f"{rec['device']}; process {wall:.1f} s): per-rank census "
                   f"{coll['bytes_by_op']} B in {coll['count_by_op']}, total "
@@ -2634,12 +2853,14 @@ def dryrun_world(n: int, seed: int) -> int:
                   f"{rec['fake_all_to_all_writes_receive_buffer']}; loss "
                   f"{rec['loss']:.6f}; {card_line()}")
     log("dryrun", f"{n} shards: gather_rows launches {got} (want {want}); "
-                  f"gather_agg launches {rec['launches']['gather_agg']}")
+                  f"gather_agg launches {rec['launches']['gather_agg']}; "
+                  f"sample_tree launches {SAMPLE_BY_PATH[path]} (want 0)")
     a2a = n * r * 4 + n * r * d * 4
     checks = {
         "status ok": rec["status"] == "ok",
         "mesh": rec["mesh"] == f"{n}x1(data)",
         "gather_rows launches": got == want,
+        "sample_tree launches": SAMPLE_BY_PATH[path] == 0,
         "census = ShardComm": rec["shard_comm"]["nbytes"] == {
             "all_to_all": coll["bytes_by_op"].get("all-to-all"),
             "all_reduce": coll["bytes_by_op"].get("all-reduce")},
@@ -3796,8 +4017,10 @@ def main() -> int:
         kernels = [check_gather_rows(ws, hops, args.seed)]
         agg_err = check_gather_agg(ws, hops, args.seed)
         kernels.append(check_linattn(args.seed))
+        kernels.append(check_sample_tree(args.seed))
         del ws, hops
-        by_path = {"gather_rows": {}, "gather_agg": {}, "linattn": {}}
+        by_path = {"gather_rows": {}, "gather_agg": {}, "linattn": {},
+                   "sample_tree": SAMPLE_BY_PATH}
         for name, n in phase_serve(ds, store, cfg, args.seed, args.requests,
                                    args.qps).items():
             by_path[name]["gnn_serve"] = n

@@ -36,6 +36,7 @@ from repro_torch.core.pregather import (GatherPlan, PlanOverflow,
                                         workspace_indices)
 from repro_torch.graph.sampler import TreeBlock, sample_tree_block
 from repro_torch.graph.structs import CSRGraph
+from repro_torch.kernels.sample_tree import DeviceCSR
 from repro_torch.obs import trace as _obs_trace
 
 Strategy = Literal["model_centric", "hopgnn", "lo"]
@@ -159,6 +160,47 @@ class IterationPlan:
                     weights=self.weights)
 
 
+def pad_vertices(owner: np.ndarray, n: int) -> np.ndarray:
+    """Each shard's pad vertex: the first vertex it owns (0 for a shard
+    that owns none)."""
+    pad_vertex = np.zeros(n, np.int64)
+    for s in range(n):
+        loc = np.nonzero(owner == s)[0]
+        pad_vertex[s] = loc[0] if loc.size else 0
+    return pad_vertex
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceTrees:
+    """What :func:`plan_iteration` needs to draw a plan's trees on a
+    device: the graph's CSR there and each shard's pad vertex, both
+    functions of the graph and the partition alone, so built once
+    (:meth:`build`) rather than on every plan."""
+
+    csr: DeviceCSR
+    pad_vertex: np.ndarray
+
+    @classmethod
+    def build(cls, graph: CSRGraph, owner: np.ndarray, num_shards: int,
+              device) -> "DeviceTrees":
+        return cls(DeviceCSR.from_graph(graph, device),
+                   pad_vertices(owner, num_shards))
+
+
+def _slice_jobs(hops: list, jobs: list, fanout: int) -> list:
+    """One TreeBlock per job out of the hop-wise expansion of the jobs'
+    concatenated roots: job j's trees are the slice [off_j * f**h,
+    (off_j + k_j) * f**h) of hop h."""
+    blks, off = [], 0
+    for *_, k in jobs:
+        blks.append(TreeBlock(hops=[ids[off * fanout ** h:
+                                        (off + k) * fanout ** h]
+                                    for h, ids in enumerate(hops)],
+                              fanout=fanout))
+        off += k
+    return blks
+
+
 def _pad_tree_block(blk: TreeBlock, batch_pad: int,
                     pad_vertex: int) -> TreeBlock:
     """Pad a sampled block to ``batch_pad`` roots with a constant vertex at
@@ -208,7 +250,9 @@ def plan_iteration(graph: CSRGraph,
                    cache_index=None,
                    executor: Optional[Executor] = None,
                    feature_store=None,
-                   l_max: Optional[int] = None) -> IterationPlan:
+                   l_max: Optional[int] = None,
+                   device_trees: Optional[DeviceTrees] = None
+                   ) -> IterationPlan:
     """Compile one training iteration into an IterationPlan.
 
     ``sample_seed`` switches to stateless per-root-deterministic sampling:
@@ -244,6 +288,15 @@ def plan_iteration(graph: CSRGraph,
     fetches (PlanOverflow on overflow). Streamed mode requires
     ``pregather=True`` (per-step exchanges presume a device-resident table
     to serve from).
+
+    ``device_trees``: the graph's CSR on a device and the shards' pad
+    vertices (:class:`DeviceTrees`, built from this ``graph`` and
+    ``owner``). With a ``sample_seed``, and a strategy other than ``lo``
+    (which samples a graph rebuilt on every call), the trees of all
+    (shard, step) jobs are drawn there in one expansion of their
+    concatenated roots, hop by hop (``plan.sample`` tagged
+    ``path="device"``); the plan is bitwise the host path's. Otherwise
+    the host samples (``path="host"``).
     """
     if cache_index is not None and c_max is not None \
             and cache_index.c_max > c_max:
@@ -257,8 +310,14 @@ def plan_iteration(graph: CSRGraph,
         rng = rng or np.random.default_rng(0)
     n = len(roots_per_model)
     span = _obs_trace.span
+    on_device = (device_trees is not None and sample_seed is not None
+                 and strategy != "lo")
+    if on_device and device_trees.pad_vertex.shape != (n,):
+        raise ValueError(f"device_trees holds pad vertices of "
+                         f"{device_trees.pad_vertex.shape[0]} shards, the "
+                         f"plan has {n}")
     # ---- sample one TreeBlock per (shard, step), pad with local rows ----
-    with span("plan.sample"):
+    with span("plan.sample", path="device" if on_device else "host"):
         if strategy == "lo":
             # LO samples only within the local partition (that *is* the
             # bias the paper measures in §7.9): drop cross-partition edges
@@ -279,10 +338,8 @@ def plan_iteration(graph: CSRGraph,
         # carry weight 0 and never touch the loss. This also makes planned
         # remote requests a pure function of (roots, seed) — what the
         # repro_torch.cache epoch prefetcher predicts.
-        pad_vertex = np.zeros(n, np.int64)
-        for s in range(n):
-            loc = np.nonzero(owner == s)[0]
-            pad_vertex[s] = loc[0] if loc.size else 0
+        pad_vertex = (device_trees.pad_vertex if on_device
+                      else pad_vertices(owner, n))
 
         counts = amat.root_counts()                  # (T, N)
         if batch_pad is None:
@@ -302,12 +359,19 @@ def plan_iteration(graph: CSRGraph,
                     w_arr[s, t, :k] = 1.0
                 jobs.append((s, t, roots, k))
 
-        sample_exec = executor if sample_seed is not None else None
-        blks = _pmap(sample_exec,
-                     lambda j: sample_tree_block(graph, j[2], num_layers,
-                                                 fanout, rng=rng,
-                                                 seed=sample_seed),
-                     jobs, label="plan.sample.job")
+        if on_device:
+            # the hash sees only (vertex, slot, hop, seed), so expanding
+            # the jobs' concatenated roots gives each job's trees as slices
+            blks = _slice_jobs(device_trees.csr.sample_trees(
+                np.concatenate([j[2] for j in jobs]), num_layers, fanout,
+                sample_seed), jobs, fanout)
+        else:
+            sample_exec = executor if sample_seed is not None else None
+            blks = _pmap(sample_exec,
+                         lambda j: sample_tree_block(graph, j[2], num_layers,
+                                                     fanout, rng=rng,
+                                                     seed=sample_seed),
+                         jobs, label="plan.sample.job")
         blocks: list[list[TreeBlock]] = [[None] * T for _ in range(n)]
         for (s, t, _, k), blk in zip(jobs, blks):
             blocks[s][t] = _pad_tree_block(blk, batch_pad, pad_vertex[s])

@@ -70,6 +70,7 @@ from repro_torch.core.distributed import make_sharded_iteration
 from repro_torch.core.tree import tree_leaves
 from repro_torch.device import resolve_device
 from repro_torch.kernels import gather_agg as _cuda
+from repro_torch.kernels import sample_tree as _sample
 from repro_torch.launch.dryrun import RESULTS_DIR, CollectiveCensus
 from repro_torch.launch.mesh import init_fake_world
 from repro_torch.models.gnn import GNNConfig, init_gnn
@@ -158,7 +159,7 @@ def run(n: int, *, model: str = "sage", layers: int = 3, fanout: int = 10,
         counted = comm_delta(before)
 
         cuda = device.type == "cuda"
-        launched = dict(_cuda.launches)
+        launched = {**_cuda.launches, **_sample.launches}
         before = (dict(comm.counts), dict(comm.nbytes))
         if cuda:
             torch.cuda.synchronize(device)
@@ -177,7 +178,8 @@ def run(n: int, *, model: str = "sage", layers: int = 3, fanout: int = 10,
             grads, loss = fn(*args)
             ms = (time.perf_counter() - t0) * 1e3
             temp = None
-        launches = {k: v - launched[k] for k, v in _cuda.launches.items()}
+        launches = {k: v - launched[k]
+                    for k, v in {**_cuda.launches, **_sample.launches}.items()}
         if comm_delta(before) != counted:
             raise AssertionError(f"the measured call's collectives "
                                  f"{comm_delta(before)} differ from the "

@@ -112,7 +112,8 @@ from repro_torch.checkpoint import (latest_step, load_checkpoint,
 from repro_torch.core import distributed as engine
 from repro_torch.core.merging import MergingController, fold_assignment
 from repro_torch.core.micrograph import hopgnn_assignment
-from repro_torch.core.strategies import IterationPlan, Strategy
+from repro_torch.core.strategies import (DeviceTrees, IterationPlan,
+                                         Strategy, pad_vertices)
 from repro_torch.core.tree import tree_clone
 from repro_torch.device import resolve_device
 from repro_torch.features import FeatureStore
@@ -285,6 +286,12 @@ class Trainer:
         self.opt_state = self.optimizer.init(self.params)
         self._uploader: Optional[PlanUploader] = None   # created in fit()
         self.strategy: Strategy = strategy
+        # the planner draws its trees on the card, from a CSR and pad
+        # vertices put there once; lo samples a graph it rebuilds per plan
+        self._device_trees = (
+            DeviceTrees.build(graph, self.owner, self.num_shards,
+                              self.device)
+            if self.device.type == "cuda" and strategy != "lo" else None)
         self.pregather = pregather
         self.merging = (strategy == "hopgnn") if merging is None else merging
         self.selector = selector
@@ -465,7 +472,8 @@ class Trainer:
             cache_index=cache_index,
             feature_store=self.store if self.streamed else None,
             executor=self._get_plan_pool(),
-            sample_seed=self.sample_seed_base + epoch * 10_000 + it)
+            sample_seed=self.sample_seed_base + epoch * 10_000 + it,
+            device_trees=self._device_trees)
         if self._cache_policy is not None and not self._cache_policy.static \
                 and not self.cache_prefetch and plan.remote_ids is not None:
             # trailing-LFU mode: learn frequencies from the requests the
@@ -1049,6 +1057,10 @@ class Trainer:
         self.store = self.store.reshard(wr.part, wr.num_shards)
         self.streamed = not self.store.resident
         self.table = self._device_table()
+        if self._device_trees is not None:
+            self._device_trees = dataclasses.replace(
+                self._device_trees,
+                pad_vertex=pad_vertices(self.owner, self.num_shards))
         # merge controller: the base rotation assignment is world-shaped;
         # the §5.3 examination restarts against the new world
         self.controller = None

@@ -217,7 +217,8 @@ def test_closed_form_at_world_256(cli_256):
         "all_reduce": coll["bytes_by_op"]["all-reduce"]}
     assert cli_256["calls"]["gather_rows_ref_calls"] \
         == 2 * (LAYERS + 1) * n
-    assert rec["launches"] == {"gather_rows": 0, "gather_agg": 0}
+    assert rec["launches"] == {"gather_rows": 0, "gather_agg": 0,
+                               "sample_tree": 0}
 
 
 _OK_RE = re.compile(r"^\[ok\] hopgnn (\w+) iteration on (\d+)-shard mesh: "
