@@ -17,10 +17,13 @@ shapes:
 A copy of the reference's ``repro.core.strategies``: ``plan_iteration``
 (training, resident or streamed from a tiered FeatureStore) and
 ``plan_inference`` (serving) give plans bitwise equal to the reference's.
+A training plan counts the paper's Fig. 14 rows when one of those counts
+is first read, not while it is built: training reads none of them.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from concurrent.futures import Executor
 from typing import Literal, Optional, Sequence
 
@@ -91,14 +94,15 @@ class IterationPlan:
     labels: np.ndarray                   # (N, T, batch_pad) int32
     weights: np.ndarray                  # (N, T, batch_pad) f32
 
-    # --- host accounting (exact, unpadded) ---
+    # --- host accounting (exact, unpadded; unique_rows, step_unique_rows
+    # and remote_rows_nodedup are counted from _true_hops when first read) ---
     remote_rows_exact: int               # deduped remote feature rows fetched
-    remote_rows_nodedup: int             # without §5.2 dedup (per-step uniq)
     total_rows: int                      # all feature rows touched (tree, dup)
-    unique_rows: int                     # deduped rows touched
-    step_unique_rows: int                # Σ per-(shard,step) unique rows
     true_counts: np.ndarray              # (T, N) roots per (step, shard)
     assignment: AssignmentMatrix
+    _true_hops: list = dataclasses.field(repr=False, compare=False)
+    #                                      [s][j][h]: true-root hop prefixes
+    _owner: np.ndarray = dataclasses.field(repr=False, compare=False)
 
     # --- remote-feature cache (repro_torch.cache; defaults = cache off) ---
     c_max: int = 0                       # cached workspace region height
@@ -129,6 +133,25 @@ class IterationPlan:
     #                                      store's tier chain
     tier_stats: Optional[dict] = None    # per-tier rows/bytes this plan's
     #                                      host gathers resolved through
+
+    @functools.cached_property
+    def _row_counts(self) -> tuple[int, int, int]:
+        return _count_rows(self._true_hops, self._owner)
+
+    @property
+    def unique_rows(self) -> int:
+        """Deduped rows touched."""
+        return self._row_counts[0]
+
+    @property
+    def step_unique_rows(self) -> int:
+        """Σ per-(shard, step) unique rows."""
+        return self._row_counts[1]
+
+    @property
+    def remote_rows_nodedup(self) -> int:
+        """Remote rows without §5.2 dedup (per-step unique)."""
+        return self._row_counts[2]
 
     def miss_rate(self) -> float:
         """Remote fraction of unique feature rows (paper Fig. 14)."""
@@ -297,6 +320,9 @@ def plan_iteration(graph: CSRGraph,
     concatenated roots, hop by hop (``plan.sample`` tagged
     ``path="device"``); the plan is bitwise the host path's. Otherwise
     the host samples (``path="host"``).
+
+    The plan keeps its trees' true-root prefixes (views, not copies) and
+    counts the Fig. 14 rows from them when first read, not here.
     """
     if cache_index is not None and c_max is not None \
             and cache_index.c_max > c_max:
@@ -481,19 +507,14 @@ def plan_iteration(graph: CSRGraph,
     # ---- accounting over true (unpadded) roots ----
     # A true root's tree holds fanout**h positions at hop h, and padding
     # follows the true roots, so the true ids of (s, t) are prefixes of its
-    # padded hops.
+    # padded hops: views, kept for the counts the plan computes when read.
     total_rows = (sum(k for *_, k in jobs)
                   * sum(fanout ** h for h in range(num_layers + 1)))
-    marked = _use_mark_count(n, T, owner.size, total_rows)
-    with span("plan.account", path="mark" if marked else "sort"):
-        true_hops: list[list[list[np.ndarray]]] = [[] for _ in range(n)]
-        for s, t, _, k in jobs:
-            if k:
-                true_hops[s].append([ids[:k * fanout ** h] for h, ids
-                                     in enumerate(blocks[s][t].hops)])
-        unique_rows, step_unique, remote_nodedup = (
-            _count_rows_marked if marked else _count_rows_sorted)(
-                true_hops, owner)
+    true_hops: list[list[list[np.ndarray]]] = [[] for _ in range(n)]
+    for s, t, _, k in jobs:
+        if k:
+            true_hops[s].append([ids[:k * fanout ** h] for h, ids
+                                 in enumerate(blocks[s][t].hops)])
 
     return IterationPlan(
         num_shards=n, num_steps=T, fanout=fanout, num_layers=num_layers,
@@ -502,10 +523,9 @@ def plan_iteration(graph: CSRGraph,
         global_batch=int(sum(np.asarray(r).size for r in roots_per_model)),
         req=req, step_req=step_req, hop_idx=hop_idx, labels=lab_arr,
         weights=w_arr,
-        remote_rows_exact=remote_exact, remote_rows_nodedup=remote_nodedup,
-        total_rows=total_rows, unique_rows=unique_rows,
-        step_unique_rows=step_unique,
+        remote_rows_exact=remote_exact, total_rows=total_rows,
         true_counts=counts, assignment=amat,
+        _true_hops=true_hops, _owner=owner,
         c_max=c_max_eff,
         cache_version=(cache_index.version if cache_index is not None
                        else -1),
@@ -514,29 +534,7 @@ def plan_iteration(graph: CSRGraph,
         feat_local=feat_local, feat_fetch=feat_fetch, tier_stats=tier_stats)
 
 
-# The accounting block counts distinct ids with a stamp array over the
-# vertex space, O(ids + n·(T+1)·V), when the id volume pays for the
-# O(V) passes; otherwise it sorts, O(ids·log ids). Measured on one Intel
-# Xeon core (numpy 2.0; 4 shards, fanout 10, 3 hops, ids drawn 85% inside
-# 2,048-vertex communities), mark against sort, by mark cells per id: at V
-# 2,449,029 and T 4, 43 (1,137,664 ids, the train-sage-products plan)
-# 21.9 ms against 43.2, 172 18.7 against 9.4; at T 1, 17 15.8 against
-# 47.5, 69 7.3 against 8.2; at V 10M and T 4, 44 97.3 against 169.3, 176
-# 79.4 against 38.5; at T 1, 70 47.6 against 42.9. The crossover lies at
-# 60-100 cells per id.
-_MARK_COUNT_CELLS_PER_ID = 64
-
-
-def _use_mark_count(n: int, T: int, V: int, total_ids: int) -> bool:
-    """Count the accounting rows with marks only where the id volume
-    amortizes their O(n·(T+1)·V) passes: a per-step plan with a few
-    thousand ids on a graph of tens of millions of vertices sorts."""
-    cells = n * (T + 1) * V
-    return 0 < cells <= _MARK_COUNT_CELLS_PER_ID * total_ids
-
-
-def _count_rows_sorted(true_hops: list, owner: np.ndarray
-                       ) -> tuple[int, int, int]:
+def _count_rows(true_hops: list, owner: np.ndarray) -> tuple[int, int, int]:
     """``(unique_rows, step_unique_rows, remote_rows_nodedup)`` of
     ``true_hops[s]``, a list of one hop list per (s, t) that has true
     roots, by sorting: the distinct ids of each shard, the distinct ids of
@@ -551,40 +549,6 @@ def _count_rows_sorted(true_hops: list, owner: np.ndarray
             u = np.unique(ids)
             step_unique += u.size
             remote += int((owner[u] != s).sum())
-    return unique, step_unique, remote
-
-
-def _count_rows_marked(true_hops: list, owner: np.ndarray
-                       ) -> tuple[int, int, int]:
-    """:func:`_count_rows_sorted`'s counts without a sort or a copy of the
-    ids. The k-th (s, t) with true roots stamps its ids with k in one
-    array over the vertex space: after its scatter the cells holding k are
-    its distinct ids, and the cells above the last stamp of the shards
-    before s are shard s's. Stamps only grow within a call, so no mark is
-    ever cleared. The arrays are the call's own (the planner may run on
-    several threads)."""
-    V = owner.size
-    stamps = sum(len(steps) for steps in true_hops)
-    stamp = np.zeros(V, np.min_scalar_type(stamps))
-    sel = np.empty(V, bool)
-    remote_v = np.empty(V, bool)
-    unique = step_unique = remote = 0
-    k = 0
-    for s, steps in enumerate(true_hops):
-        if not steps:
-            continue
-        np.not_equal(owner, s, out=remote_v)
-        first = k
-        for hops in steps:
-            k += 1
-            for ids in hops:
-                stamp[ids] = k
-            np.equal(stamp, k, out=sel)
-            step_unique += int(np.count_nonzero(sel))
-            np.logical_and(sel, remote_v, out=sel)
-            remote += int(np.count_nonzero(sel))
-        np.greater(stamp, first, out=sel)
-        unique += int(np.count_nonzero(sel))
     return unique, step_unique, remote
 
 

@@ -15,10 +15,9 @@ The planner's spans, outermost first: ``plan.build`` (one plan, its
 upload commit included) on ``prefetch``; inside it one ``plan.pass`` per
 call of the planner (``probe=True`` on a new merge pattern's probe, and
 ``error=PlanOverflow`` on a pass that overflowed its budget and was
-rebuilt); inside each pass the stages ``plan.sample``, ``plan.dedup``,
-``plan.translate`` and ``plan.account`` on the same lane (``plan.account``
-tagged ``path="mark"`` or ``path="sort"``, how it counted, and
-``plan.dedup`` ``path="bitmap"`` or ``path="sort"``). The stages'
+rebuilt); inside each pass the three stages ``plan.sample``,
+``plan.dedup`` and ``plan.translate`` on the same lane (``plan.dedup``
+tagged ``path="bitmap"`` or ``path="sort"``). The stages'
 per-item work, ``plan.sample.job``, ``plan.dedup.job`` (per-step mode)
 and ``plan.translate.job``, lands on whichever ``planner-N`` lane runs
 it, or nested in its stage when the pool is off.

@@ -1,11 +1,13 @@
-"""The planner's accounting block (``plan.account``): ``total_rows``,
-``unique_rows``, ``step_unique_rows`` and ``remote_rows_nodedup`` on both of
-its paths — distinct ids counted with a stamp array over the vertex space
-(``path="mark"``) or with sorts (``path="sort"``) — held to the formula the
-planner used before, which cut each padded tree back to its true roots with
-``TreeBlock.select`` and ran ``np.unique`` over each shard's and each step's
-ids, and to the reference's plan. The graph's size picks the path: a small
-graph with many ids marks, a large one with few ids sorts."""
+"""The planner's accounting: ``total_rows``, counted while the plan is
+built, and the Fig. 14 counts ``unique_rows``, ``step_unique_rows`` and
+``remote_rows_nodedup``, which the plan counts from its trees' true-root
+prefixes when one of them is first read. All are held to the formula the
+planner used before, which cut each padded tree back to its true roots
+with ``TreeBlock.select`` and ran ``np.unique`` over each shard's and each
+step's ids, and to the reference's plan, on a small graph with many ids
+per vertex and a large one with few."""
+import sys
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -23,14 +25,15 @@ from repro_torch.graph.partition import (community_partition,
                                          drop_cross_edges, local_index_map)
 from repro_torch.graph.sampler import sample_tree_block
 from repro_torch.obs import trace as obs_trace
+from repro_torch.train.budget import ShapeBudget
 
 SHARDS = 4
 LAYERS = 2
 FANOUT = 3
 SEED = 11
-# (vertices, communities, roots per model): the small graph's plans have
-# 25 mark cells per id or fewer, the large one's 3,000 or more
-GRAPHS = {"mark": (1024, 8, 16), "sort": (60_000, 30, 3)}
+# (vertices, communities, roots per model): the small graph's plans touch
+# most of its vertices, the large one's a few in a thousand
+GRAPHS = {"small": (1024, 8, 16), "large": (60_000, 30, 3)}
 CASES = ("hopgnn", "hopgnn-padded", "hopgnn-empty", "hopgnn-merged",
          "model_centric-unpadded", "lo")
 COUNTS = ("total_rows", "unique_rows", "step_unique_rows",
@@ -49,13 +52,13 @@ def _trace_reset():
 @pytest.fixture(scope="module")
 def worlds():
     out = {}
-    for path, (v, comms, per_model) in GRAPHS.items():
+    for size, (v, comms, per_model) in GRAPHS.items():
         g_t, comm = torch_synthetic.community_graph(v, 4.0, comms, 0.85,
                                                     seed=3)
         g_j, _ = jax_synthetic.community_graph(v, 4.0, comms, 0.85, seed=3)
         part = community_partition(comm, SHARDS)
         owner, local_idx, rows = local_index_map(part, SHARDS)
-        out[path] = dict(g_t=g_t, g_j=g_j, part=part, owner=owner,
+        out[size] = dict(g_t=g_t, g_j=g_j, part=part, owner=owner,
                          local_idx=local_idx, local_rows=rows,
                          labels=(comm % 7).astype(np.int32),
                          per_model=per_model)
@@ -87,8 +90,12 @@ def _case_kwargs(w, case, pregather, seed):
     return kw, assign
 
 
+def _counts(plan) -> dict:
+    return {f: getattr(plan, f) for f in COUNTS}
+
+
 def _old_counts(plan, graph, kw):
-    """The accounting as the planner computed it before the mark path: each
+    """The accounting as the planner once computed it while building: each
     (s, t)'s padded block cut back to its true roots with ``select``, its
     rows counted tree by tree, and ``np.unique`` over the ids of each shard
     and of each (s, t)."""
@@ -124,10 +131,10 @@ def _old_counts(plan, graph, kw):
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("pregather", [True, False],
                          ids=["pregather", "per_step"])
-@pytest.mark.parametrize("path", list(GRAPHS))
+@pytest.mark.parametrize("size", list(GRAPHS))
 def test_account_counts_match_the_old_formula_and_the_reference(
-        worlds, path, pregather, case):
-    w = worlds[path]
+        worlds, size, pregather, case):
+    w = worlds[size]
     kw, assign = _case_kwargs(w, case, pregather, seed=len(case))
     obs_trace.enable()
     plan = torch_strategies.plan_iteration(
@@ -138,9 +145,7 @@ def test_account_counts_match_the_old_formula_and_the_reference(
         graph=w["g_j"], assignment=assign and assign(jax_micro,
                                                      jax_merging), **kw)
 
-    spans = [r for r in obs_trace.records()
-             if r.kind == "X" and r.name == "plan.account"]
-    assert [r.tags for r in spans] == [{"path": path}]
+    assert not [r for r in obs_trace.records() if r.name == "plan.account"]
     if case == "hopgnn-merged":
         assert plan.num_steps == 1
     counts = plan.true_counts
@@ -151,9 +156,9 @@ def test_account_counts_match_the_old_formula_and_the_reference(
         assert (counts == plan.batch_pad).all()
 
     old = _old_counts(plan, w["g_t"], kw)
-    got = {f: getattr(plan, f) for f in COUNTS}
+    got = _counts(plan)
     assert got == old
-    assert got == {f: getattr(ref, f) for f in COUNTS}
+    assert got == _counts(ref)
     assert (got["remote_rows_nodedup"] > 0) == (kw["strategy"] != "lo")
     for f in ("num_steps", "r_max", "batch_pad", "remote_rows_exact"):
         assert getattr(plan, f) == getattr(ref, f), f
@@ -166,47 +171,82 @@ def test_account_counts_match_the_old_formula_and_the_reference(
         assert a.dtype == b.dtype == np.int32 and np.array_equal(a, b)
 
 
-@pytest.mark.parametrize("shards,steps", [(3, 2), (4, 4), (20, 30)])
-def test_mark_and_sort_counts_agree(shards, steps):
-    """Both counters on the same hop lists: repeated ids, shards with no
-    step, and (13 shards with 30 steps each) more stamps than a byte
-    holds."""
-    rng = np.random.default_rng(shards * steps)
-    V = 500
-    owner = rng.integers(0, shards, V).astype(np.int32)
-    true_hops = []
-    for s in range(shards):
-        n_steps = 0 if s % 3 == 1 else steps
-        true_hops.append([[rng.integers(0, V, rng.integers(1, 40) * 3 ** h)
-                           for h in range(3)] for _ in range(n_steps)])
-    sorted_ = torch_strategies._count_rows_sorted(true_hops, owner)
-    marked = torch_strategies._count_rows_marked(true_hops, owner)
-    assert marked == sorted_ and min(sorted_) > 0
+@pytest.fixture
+def count_calls(monkeypatch):
+    """One entry per call of the planner's row counter."""
+    calls = []
+    count = torch_strategies._count_rows
+
+    def counting(*args):
+        calls.append(1)
+        return count(*args)
+
+    monkeypatch.setattr(torch_strategies, "_count_rows", counting)
+    return calls
 
 
-@pytest.mark.parametrize("n,T,V,ids,marked", [
-    (4, 4, 2_449_029, 1024 * 1111, True),      # train-sage-products
-    (4, 1, 2_449_029, 1024 * 1111, True),      # the same, fully merged
-    (4, 4, 30_000_000, 4 * 1111, False),       # a per-step plan, few ids
-    (4, 4, 0, 100, False),                     # no vertices
-], ids=["products_plan", "products_merged", "few_ids_large_graph",
-        "empty_graph"])
-def test_mark_path_where_the_id_volume_pays(n, T, V, ids, marked):
-    assert torch_strategies._use_mark_count(n, T, V, ids) is marked
+@pytest.mark.parametrize("pregather", [True, False],
+                         ids=["pregather", "per_step"])
+@pytest.mark.parametrize("strategy", ["hopgnn", "model_centric", "lo"])
+def test_counts_are_computed_only_when_read(worlds, count_calls, strategy,
+                                            pregather):
+    w = worlds["small"]
+    kw, _ = _case_kwargs(w, strategy, pregather, seed=7)
+    plan = torch_strategies.plan_iteration(graph=w["g_t"], **kw)
+    assert count_calls == []
+    got = [_counts(plan) for _ in range(2)]
+    rates = [(plan.miss_rate(), plan.miss_rate_per_request())
+             for _ in range(2)]
+    assert len(count_calls) == 1
+    assert got[0] == got[1] == _old_counts(plan, w["g_t"], kw)
+    assert rates[0] == rates[1] == (
+        plan.remote_rows_exact / max(got[0]["unique_rows"], 1),
+        got[0]["remote_rows_nodedup"] / max(got[0]["step_unique_rows"], 1))
 
 
-def test_marked_accounting_shares_no_state_across_threads(worlds):
-    """The mark path's arrays are each call's own: plans built at once on
-    eight threads count what one thread alone counts."""
-    w = worlds["mark"]
+def test_counts_read_on_many_threads_equal_one_thread(worlds):
+    """Eight plans built at once on eight threads, then their counts read
+    at once from four, with the interpreter switching threads as often as
+    it can: each reader sees what one thread alone counts."""
+    w = worlds["small"]
     kws = [_case_kwargs(w, "hopgnn", True, seed=i)[0] for i in range(8)]
-    alone = [torch_strategies.plan_iteration(graph=w["g_t"], **kw)
+    alone = [_counts(torch_strategies.plan_iteration(graph=w["g_t"], **kw))
              for kw in kws]
     with ThreadPoolExecutor(8) as pool:
-        futures = [pool.submit(torch_strategies.plan_iteration,
-                               graph=w["g_t"], **kw) for kw in kws * 4]
-        together = [f.result(timeout=120) for f in futures]
-    for i, plan in enumerate(together):
-        want = alone[i % len(kws)]
-        assert {f: getattr(plan, f) for f in COUNTS} == \
-            {f: getattr(want, f) for f in COUNTS}
+        plans = [f.result(timeout=120) for f in
+                 [pool.submit(torch_strategies.plan_iteration,
+                              graph=w["g_t"], **kw) for kw in kws]]
+    start = threading.Barrier(4)
+
+    def read_all(_):
+        start.wait(timeout=60)
+        return [_counts(p) for p in plans]
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(4) as pool:
+            reads = list(pool.map(read_all, range(4), timeout=120))
+    finally:
+        sys.setswitchinterval(interval)
+    assert all(r == alone for r in reads)
+
+
+def test_counts_survive_a_budget_rebuild(worlds, count_calls):
+    """A budget seeded too small for the fetches overflows, re-buckets and
+    plans again; that plan counts what a direct plan at its final shapes
+    and the reference's count, and no pass counted anything."""
+    w = worlds["small"]
+    kw, _ = _case_kwargs(w, "hopgnn", True, seed=5)
+    budget = ShapeBudget(batch_pad=64, r_max=1)
+    plan = budget.plan(graph=w["g_t"], **kw)
+    assert budget.rebuckets == 1 and count_calls == []
+    shapes = dict(batch_pad=budget.batch_pad, r_max=budget.r_max)
+    direct = torch_strategies.plan_iteration(graph=w["g_t"], **kw, **shapes)
+    ref = jax_strategies.plan_iteration(graph=w["g_j"], **kw, **shapes)
+    assert plan.batch_pad == 64 and plan.r_max == budget.r_max > 1
+    for a, b in zip(plan.hop_idx, ref.hop_idx, strict=True):
+        assert np.array_equal(a, b)
+    got = _counts(plan)
+    assert got == _counts(direct) == _counts(ref)
+    assert got == _old_counts(plan, w["g_t"], kw)

@@ -1,6 +1,6 @@
 """The planner traced from inside: ``plan.pass`` spans in the shape budget,
-the stage spans of ``plan_iteration`` (``plan.sample``, ``plan.dedup``,
-``plan.translate``, ``plan.account``) and their per-item jobs, the
+the three stage spans of ``plan_iteration`` (``plan.sample``,
+``plan.dedup``, ``plan.translate``) and their per-item jobs, the
 recording thread's CPU time on every span, the recorder's clock pairs,
 and their export. Tracing off records nothing and reads no clock; tracing
 on leaves every plan bitwise the same."""
@@ -22,7 +22,7 @@ from repro_torch.train import Trainer
 from repro_torch.train.budget import ShapeBudget
 
 SHARDS = 4
-STAGES = ("plan.sample", "plan.dedup", "plan.translate", "plan.account")
+STAGES = ("plan.sample", "plan.dedup", "plan.translate")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -147,9 +147,23 @@ def test_jobs_run_on_the_planner_lanes_inside_their_stage(traced_fit, job,
     assert not _complete(recs, "plan.dedup.job")      # pregather: no fan-out
 
 
+def test_a_traced_fit_records_no_accounting_span(traced_fit):
+    """The plan counts its Fig. 14 rows when read, not while it is built:
+    each pass holds the three stages and nothing else at its depth."""
+    recs = traced_fit["recs"]
+    passes = _complete(recs, "plan.pass")
+    assert passes
+    for p in passes:
+        stages = sorted(r.name for r in recs if r.kind == "X"
+                        and r.track == p.track and r.depth == p.depth + 1
+                        and p.t0_ns <= r.t0_ns and r.t1_ns <= p.t1_ns)
+        assert stages == sorted(STAGES), stages
+    assert not [r for r in recs if r.name == "plan.account"]
+
+
 def test_fit_spans_carry_cpu_time(traced_fit):
     recs = traced_fit["recs"]
-    for name in ("plan.build", "plan.pass", "plan.account", "dispatch",
+    for name in ("plan.build", "plan.pass", "plan.dedup", "dispatch",
                  "plan.sample.job"):
         spans = _complete(recs, name)
         assert spans and all(0 <= r.cpu_ns for r in spans), name
@@ -310,7 +324,7 @@ def test_plans_bitwise_equal_with_tracing_on_and_off(world, pregather,
     finally:
         if pool is not None:
             pool.shutdown()
-    assert _complete(obs_trace.records(), "plan.account")
+    assert _complete(obs_trace.records(), "plan.translate")
     a, b = _arrays(off), _arrays(on)
     assert a.keys() == b.keys()
     for k in a:
