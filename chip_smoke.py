@@ -10,7 +10,8 @@ nothing of JAX and nothing of the JAX package. Phases (any failure ends
 the run with a non-zero exit and no result line):
 
   1. build    nvcc builds src/repro_torch/kernels/csrc/gather_agg.cu,
-              csrc/linattn.cu and csrc/sample_tree.cu for sm_90a into
+              csrc/linattn.cu, csrc/sample_tree.cu and csrc/plan_dedup.cu
+              for sm_90a into
               build/repro_torch_kernels/ (git-ignored), all at once, and
               prints one line per kernel
               instance: registers, static shared memory, stack and spills.
@@ -52,6 +53,14 @@ the run with a non-zero exit and no result line):
               then the three launches' device time beside the plain
               version's and the bound, the planner's whole call (launches,
               copy to pinned memory, sync) and the host sampler's 16 jobs.
+              plan_dedup on a plan of each cell (16 jobs of 64 roots
+              padded to 128, 3 hops of fanout 10) over a random CSR of the
+              cell's size, 4 shards: bitwise build_gather_plan and
+              workspace_indices and its plain version on the card, the
+              dedup's and the translation's device time beside the plain
+              version's and the bound, the planner's whole call from the
+              host beside the host path's, and the launches of one plan
+              pass.
   3. serve    GNNServer with GraphSAGE at the paper's settings (3 layers,
               hidden 128, fanout 10) on the synthetic products graph at
               full scale (245,000 vertices, 4-way community partition),
@@ -76,8 +85,10 @@ the run with a non-zero exit and no result line):
               leaf's largest value; then fit for 2 epochs of 8 iterations,
               gating finite losses, no retraces after epoch 0 beyond one
               per new merge pattern, gather_rows launched once per
-              (shard, step, hop) of every iteration and sample_tree three
-              times per plan pass. Prints losses, steady
+              (shard, step, hop) of every iteration, sample_tree three
+              times per plan pass and plan_dedup four dedup launches per
+              plan pass (three in one that overflows its r_max) and one
+              translation per hop. Prints losses, steady
               ms/iter, dispatch and plan ms/iter, rows fetched per
               iteration, and one more epoch under torch.profiler (device
               busy share, time by kernel). TF32 stays off.
@@ -277,7 +288,10 @@ and mesh phases' runs under their own path names) and to 0 on serving,
 precompute, P3 and the dry runs; gather_agg's
 timings at the P3 shape, every shape's under ``shapes``; with --world
 N, the mesh phase's summary instead, where every rank's straight,
-merging and faulted fits hold sample_tree to 3 per plan pass), the card's name and power limit,
+merging and faulted fits hold sample_tree to 3 per plan pass; plan_dedup's
+on every path of this process, dedup and translation launches summed,
+and its timings at both cells' plan sizes under ``cells``), the card's
+name and power limit,
 and last ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py [--requests 4096] [--qps 1000] [--seed 0]
@@ -313,6 +327,9 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import distributed as engine  # noqa: E402
 from repro_torch.core import (plan_inference, plan_iteration,  # noqa: E402
                               plan_p3, run_p3_iteration)
+from repro_torch.core.pregather import (build_gather_plan,  # noqa: E402
+                                        workspace_indices)
+from repro_torch.core.strategies import DeviceTrees  # noqa: E402
 from repro_torch.core.comm_model import (FABRICS, ModelSpec,  # noqa: E402
                                          hopgnn_bytes, lo_bytes,
                                          model_centric_bytes, naive_fc_bytes,
@@ -321,12 +338,13 @@ from repro_torch.data import make_batch, token_batches  # noqa: E402
 from repro_torch.features import FeatureStore  # noqa: E402
 from repro_torch.graph import make_dataset  # noqa: E402
 from repro_torch.graph.partition import (community_partition,  # noqa: E402
-                                         shard_features)
+                                         local_index_map, shard_features)
 from repro_torch.graph.sampler import (micrograph_split,  # noqa: E402
                                        sample_tree_block)
 from repro_torch.graph.structs import CSRGraph  # noqa: E402
 from repro_torch.kernels import gather_agg as ga  # noqa: E402
 from repro_torch.kernels import linattn as la  # noqa: E402
+from repro_torch.kernels import plan_dedup as pd  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import sample_tree as sk  # noqa: E402
 from repro_torch.launch import dryrun_gnn  # noqa: E402
@@ -363,6 +381,13 @@ TF32_FLOP_PER_S = 495e12           # H100 SXM TF32 tensor cores, dense
 BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor cores, dense
 SRC = "src/repro_torch/kernels/csrc/gather_agg.cu"
 ST_SRC = "src/repro_torch/kernels/csrc/sample_tree.cu"
+PD_SRC = "src/repro_torch/kernels/csrc/plan_dedup.cu"
+# [kernels] plan_dedup: a plan of each cell (16 (shard, step) jobs of 64
+# roots, batch_pad 128, 3 hops of fanout 10) over a random CSR of the
+# cell's size, 4 shards by runs of vertices with a fifth strayed at random
+DEDUP_CELLS = {"train-sage-products": (2_449_029, 52.11 / 0.9),
+               "train-gat-uk": (10_000_000, 23.59 / 0.9)}
+DEDUP_JOBS, DEDUP_BATCH_PAD = 16, 128
 # [kernels] sample_tree: a train-sage-products plan (4 models x 256 roots,
 # 3 hops of fanout 10) over a random CSR of that cell's size: its 52.11
 # entries per vertex, with a tenth of the vertices at degree 0
@@ -586,8 +611,8 @@ def phase_build() -> None:
     """Every library at once: one nvcc per source, started together."""
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        futs = [pool.submit(mod.build, True) for mod in (ga, la, sk)]
+    with ThreadPoolExecutor(4) as pool:
+        futs = [pool.submit(mod.build, True) for mod in (ga, la, sk, pd)]
         built = [f.result() for f in futs]
     spilled = []
     for path, msgs in built:
@@ -753,6 +778,7 @@ def check_gather_agg_cases(seed: int) -> float:
 AGG_SHAPES: dict = {}   # shape name -> reduce -> timings (time_gather_agg)
 AGG_BY_PATH: dict = {}  # path -> gather_agg launches in its window
 SAMPLE_BY_PATH: dict = {}   # path -> sample_tree launches in its window
+DEDUP_BY_PATH: dict = {}    # path -> plan_dedup's launches in its window
 
 
 def reset_launches() -> None:
@@ -760,6 +786,7 @@ def reset_launches() -> None:
     zeroed."""
     ga.reset_launches()
     sk.reset_launches()
+    pd.reset_launches()
 
 
 def window_end(path: str) -> int:
@@ -779,9 +806,11 @@ def plan_passes(trainer) -> int:
 def sample_end(path: str, passes: int, layers: int) -> str:
     """At the end of a path's counted window: sample_tree's launches in
     it, recorded for the kernels line and held to one per hop of every
-    plan pass (``passes`` 0 on a path that builds no Trainer plan).
-    Returns the log's words."""
+    plan pass (``passes`` 0 on a path that builds no Trainer plan), and
+    plan_dedup's (its dedup and translation launches together), recorded
+    for the kernels line. Returns the log's words."""
     got = SAMPLE_BY_PATH[path] = sk.launches["sample_tree"]
+    DEDUP_BY_PATH[path] = sum(pd.launches.values())
     want = layers * passes
     words = (f"sample_tree launches {got} (want {want} = {layers} x "
              f"{passes} plan passes)")
@@ -939,6 +968,205 @@ def check_sample_tree(seed: int) -> dict:
     return dict(name="sample_tree", route="cuda", source=ST_SRC,
                 replaces=None, max_abs_err=0.0, bound_by=by, ms=ms,
                 plain_ms=pms, bound_ms=b, call_ms=call, host_ms=host)
+
+
+def dedup_end(path: str, trainer, before: tuple, layers: int) -> str:
+    """plan_dedup's launches in a Trainer's window on the device path,
+    held to 4 dedup launches per plan pass (3 in a pass that overflows its
+    r_max: the budget's re-buckets on a path with no cache and no streamed
+    store) and one translation per hop of each pass that does not.
+    ``before``: the budget's (probes + plans built, re-buckets) at the
+    window's start."""
+    b = trainer.budget
+    ok = b.probes + b.plans_built - before[0]
+    over = b.rebuckets - before[1]
+    want = {"plan_dedup": 4 * ok + 3 * over,
+            "plan_translate": (layers + 1) * ok}
+    got = dict(pd.launches)
+    words = (f"plan_dedup launches {got} (want {want}: {ok} plan passes, "
+             f"{over} overflowed)")
+    if got != want:
+        raise AssertionError(f"{path}: {words}")
+    return words
+
+
+def dedup_inputs(v: int, mean_deg: float, seed: int):
+    """A cell-sized plan's trees on the card: a random CSR of ``v``
+    vertices at ``mean_deg`` (a tenth at degree 0), 4 shards by runs of
+    vertices with a fifth strayed at random, 16 jobs of 64 roots drawn
+    three hops deep at fanout 10."""
+    rng = np.random.default_rng(seed)
+    deg = rng.poisson(mean_deg, v)
+    deg[rng.random(v) < 0.1] = 0
+    indptr = np.zeros(v + 1, np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    graph = CSRGraph(indptr=indptr, indices=rng.integers(
+        0, v, int(indptr[-1]), dtype=np.int32))
+    part = np.minimum(np.arange(v) * SHARDS // v, SHARDS - 1)
+    stray = rng.random(v) < 0.2
+    part[stray] = rng.integers(0, SHARDS, int(stray.sum()))
+    owner, local_idx, rows = local_index_map(part, SHARDS)
+    roots = rng.choice(v, SAMPLE_ROOTS, replace=False)
+    return graph, owner, local_idx, rows, roots
+
+
+def check_plan_dedup(seed: int) -> dict:
+    """plan_dedup at both cells' plan sizes: the kernels bitwise their
+    plain version on the card and the host's build_gather_plan and
+    workspace_indices; their device time beside the bound and the plain
+    version's; the planner's whole call from the host (count, the wait for
+    the counts, scatter, translate, one copy back and its wait) beside the
+    host path's; the launches of one plan pass."""
+    layers, f, steps = 3, 10, DEDUP_JOBS // SHARDS
+    job_k = np.full(DEDUP_JOBS, SAMPLE_ROOTS // DEDUP_JOBS, np.int64)
+    entry = dict(name="plan_dedup", route="cuda", source=PD_SRC,
+                 replaces=None, max_abs_err=0.0, cells={})
+    for cell, (v, mean_deg) in DEDUP_CELLS.items():
+        graph, owner, local_idx, rows, roots = dedup_inputs(v, mean_deg,
+                                                            seed)
+        trees = DeviceTrees.build(graph, owner, local_idx, SHARDS, DEVICE)
+        part, s = trees.part, 2 ** 31 + seed
+        drawn = trees.csr.draw_trees(roots, layers, f, s)
+        torch.cuda.synchronize()
+        pd.reset_launches()
+        dd = part.count(drawn, job_k, steps, layers, f, DEDUP_BATCH_PAD)
+        r_max = int(dd.req_count.max())
+        part.scatter(dd, r_max, rows)
+        req, hops = part.translate(dd)
+        launches = dict(pd.launches)
+        if launches != {"plan_dedup": 4, "plan_translate": layers + 1}:
+            raise AssertionError(f"plan_dedup launched {launches} in one "
+                                 f"plan pass")
+        # the host path over the same trees
+        host = drawn.cpu().numpy()
+        sizes = [SAMPLE_ROOTS * f ** h for h in range(layers + 1)]
+        ends = np.cumsum(sizes).tolist()
+        hop_all = [host[e - z:e] for z, e in zip(sizes, ends)]
+        per = SAMPLE_ROOTS // DEDUP_JOBS
+        blocks = [[hop_all[h][j * per * f ** h:(j + 1) * per * f ** h]
+                   for h in range(layers + 1)] for j in range(DEDUP_JOBS)]
+        padded = [[np.concatenate([b[h], np.full(
+            (DEDUP_BATCH_PAD - per) * f ** h,
+            part.pad_vertex_host[j // steps])]) for h in range(layers + 1)]
+            for j, b in enumerate(blocks)]
+
+        def host_path():
+            needed = [np.concatenate([np.concatenate(padded[j])
+                                      for j in range(sh * steps,
+                                                     (sh + 1) * steps)])
+                      for sh in range(SHARDS)]
+            plan = build_gather_plan(needed, owner, local_idx, SHARDS, rows,
+                                     r_max)
+            return plan, [workspace_indices(padded[j], j // steps, owner,
+                                            local_idx, plan)
+                          for j in range(DEDUP_JOBS)]
+        t0 = time.perf_counter()
+        plan, widx = host_path()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        if not (np.array_equal(plan.req, req)
+                and np.array_equal(plan.req_count, dd.req_count)):
+            raise AssertionError(f"plan_dedup's exchange differs from the "
+                                 f"host's at {cell}")
+        for h in range(layers + 1):
+            want = np.stack([widx[j][h] for j in range(DEDUP_JOBS)])
+            if not np.array_equal(want.reshape(hops[h].shape), hops[h]):
+                raise AssertionError(f"plan_dedup's hop {h} differs from "
+                                     f"the host's at {cell}")
+        # the kernels and the plain version on the card, on the same inputs
+        root_shard = torch.from_numpy(np.repeat(
+            np.arange(DEDUP_JOBS) // steps, per)).to(DEVICE)
+        pad_mark = part.pad_vertex.clone()
+        job_off = torch.arange(DEDUP_JOBS, device=DEVICE) * per
+        job_kt = torch.from_numpy(job_k).to(DEVICE)
+        out = {}
+        for name, mark_fn, count_fn, scatter_fn, hop_fn in (
+                ("kernel", pd.mark_ids, pd.count_marks, pd.scatter_marks,
+                 pd.translate_hop),
+                ("plain", pd.mark_ids_ref, pd.count_marks_ref,
+                 pd.scatter_marks_ref, pd.translate_hop_ref)):
+            def dedup(mark_fn=mark_fn, count_fn=count_fn,
+                      scatter_fn=scatter_fn):
+                mark = mark_fn(drawn, SAMPLE_ROOTS, f, layers, root_shard,
+                               pad_mark, v)
+                counts, chunk_off = count_fn(mark, part)
+                req_t = torch.zeros((SHARDS, SHARDS, r_max),
+                                    dtype=torch.int32, device=DEVICE)
+                slot = torch.empty((SHARDS, v), dtype=torch.int32,
+                                   device=DEVICE)
+                scatter_fn(mark, part, chunk_off, r_max, rows, req_t, slot)
+                return counts, req_t, slot
+            counts, req_t, slot = dedup()
+            outs = [torch.empty(SHARDS * steps * DEDUP_BATCH_PAD * f ** h,
+                                dtype=torch.int32, device=DEVICE)
+                    for h in range(layers + 1)]
+
+            def translate(hop_fn=hop_fn, slot=slot, outs=outs):
+                for h in range(layers + 1):
+                    hop_fn(drawn[ends[h] - sizes[h]:ends[h]], f ** h,
+                           DEDUP_BATCH_PAD, steps, job_off, job_kt, part,
+                           slot, outs[h])
+            translate()
+            if not (torch.equal(counts.cpu(), torch.from_numpy(
+                    dd.req_count.reshape(-1)))
+                    and torch.equal(req_t.cpu(), torch.from_numpy(req))
+                    and all(torch.equal(o.cpu(), torch.from_numpy(
+                        hops[h].reshape(-1))) for h, o in enumerate(outs))):
+                raise AssertionError(f"plan_dedup {name} differs at {cell}")
+            timer = device_ms if name == "kernel" else call_ms
+            out[name] = (timer(dedup), timer(translate))
+        calls = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            dd = part.count(drawn, job_k, steps, layers, f, DEDUP_BATCH_PAD)
+            part.scatter(dd, r_max, rows)
+            part.translate(dd)
+            calls.append(1e3 * (time.perf_counter() - t0))
+        call = float(np.median(calls))
+        n_ids = ends[-1]
+        remote = int(dd.req_count.sum())
+        touched = int(sum(np.unique(np.concatenate(
+            [np.concatenate(padded[j]) for j in range(sh * steps,
+                                                      (sh + 1) * steps)])
+        ).size for sh in range(SHARDS)))
+        positions = sum(SHARDS * steps * DEDUP_BATCH_PAD * f ** h
+                        for h in range(layers + 1))
+        # least bytes: the tree ids and the owner row read once; each
+        # remote id's local index read and slot written once; req written
+        d_bytes = 8 * n_ids + 4 * v + 8 * remote + 4 * req.size
+        # each true tree id read, each position written, and for each
+        # distinct (shard, id) its owner and its local index or slot once
+        t_bytes = 8 * n_ids + 4 * positions + 8 * touched
+        (dk, tk), (dp, tp) = out["kernel"], out["plain"]
+        db, _ = bound_ms(d_bytes)
+        tb, _ = bound_ms(t_bytes)
+        log("kernels", f"plan_dedup {cell} plan: V {v}, {SHARDS} shards, "
+                       f"{DEDUP_JOBS} jobs of {per} roots padded to "
+                       f"{DEDUP_BATCH_PAD}, {n_ids} tree ids, {remote} "
+                       f"remote ids, r_max {r_max}, {positions} positions: "
+                       f"bitwise the host path and the plain version; "
+                       f"dedup (mark with its zeroing, count, scan, "
+                       f"scatter) device {dk:.5f} ms (plain {dp:.5f} ms), "
+                       f"moves {d_bytes} B, bound {db:.5f} ms (bytes), "
+                       f"{100 * db / dk:.1f}% of it; translate (4 hops) "
+                       f"device {tk:.5f} ms (plain {tp:.5f} ms), moves "
+                       f"{t_bytes} B, bound {tb:.5f} ms (bytes), "
+                       f"{100 * tb / tk:.1f}% of it; launches per plan pass "
+                       f"{launches}; the planner's call {call:.3f} ms from "
+                       f"the host (median of 20); the host path "
+                       f"(build_gather_plan {plan.dedup}, workspace_indices)"
+                       f" {host_ms:.2f} ms")
+        entry["cells"][cell] = dict(
+            dedup_ms=dk, dedup_plain_ms=dp, dedup_bound_ms=db,
+            translate_ms=tk, translate_plain_ms=tp, translate_bound_ms=tb,
+            call_ms=call, host_ms=host_ms, launches_per_pass=launches)
+        del trees, part, drawn, dd, graph
+        free_card()
+    sage = entry["cells"]["train-sage-products"]
+    entry.update(ms=sage["dedup_ms"] + sage["translate_ms"],
+                 plain_ms=sage["dedup_plain_ms"] + sage["translate_plain_ms"],
+                 bound_ms=sage["dedup_bound_ms"] + sage["translate_bound_ms"],
+                 bound_by="bytes")
+    return entry
 
 
 def gather_agg_entry(err: float) -> dict:
@@ -1393,6 +1621,8 @@ def phase_train(ds, store, part, cfg, seed: int) -> int:
     # the main path: counts are zeroed just before it and read just after
     reset_launches()
     passes = plan_passes(trainer)
+    before = (trainer.budget.probes + trainer.budget.plans_built,
+              trainer.budget.rebuckets)
     t0 = time.perf_counter()
     stats = trainer.fit(TRAIN_EPOCHS, TRAIN_ITERS,
                         batch_per_model=TRAIN_BATCH)
@@ -1400,6 +1630,8 @@ def phase_train(ds, store, part, cfg, seed: int) -> int:
     launches = window_end("gnn_train")
     sampled = sample_end("gnn_train", plan_passes(trainer) - passes,
                          cfg.num_layers)
+    sampled += "; " + dedup_end("gnn_train", trainer, before,
+                                cfg.num_layers)
     want = sum((cfg.num_layers + 1) * SHARDS * st.num_steps * TRAIN_ITERS
                for st in stats)
     seen, retraces = set(), 0
@@ -4018,9 +4250,11 @@ def main() -> int:
         agg_err = check_gather_agg(ws, hops, args.seed)
         kernels.append(check_linattn(args.seed))
         kernels.append(check_sample_tree(args.seed))
+        kernels.append(check_plan_dedup(args.seed))
         del ws, hops
         by_path = {"gather_rows": {}, "gather_agg": {}, "linattn": {},
-                   "sample_tree": SAMPLE_BY_PATH}
+                   "sample_tree": SAMPLE_BY_PATH,
+                   "plan_dedup": DEDUP_BY_PATH}
         for name, n in phase_serve(ds, store, cfg, args.seed, args.requests,
                                    args.qps).items():
             by_path[name]["gnn_serve"] = n

@@ -18,14 +18,17 @@ A copy of the reference's ``repro.core.strategies``: ``plan_iteration``
 (training, resident or streamed from a tiered FeatureStore) and
 ``plan_inference`` (serving) give plans bitwise equal to the reference's.
 A training plan counts the paper's Fig. 14 rows when one of those counts
-is first read, not while it is built: training reads none of them.
+is first read, not while it is built: training reads none of them. Given
+the graph on a device (:class:`DeviceTrees`), a plan draws its trees there
+and, where it pregathers without a cache or a streamed store, dedups and
+translates them there as well (:mod:`repro_torch.kernels.plan_dedup`).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 from concurrent.futures import Executor
-from typing import Literal, Optional, Sequence
+from typing import Callable, Literal, Optional, Sequence
 
 import numpy as np
 
@@ -39,6 +42,7 @@ from repro_torch.core.pregather import (GatherPlan, PlanOverflow,
                                         workspace_indices)
 from repro_torch.graph.sampler import TreeBlock, sample_tree_block
 from repro_torch.graph.structs import CSRGraph
+from repro_torch.kernels.plan_dedup import DevicePartition
 from repro_torch.kernels.sample_tree import DeviceCSR
 from repro_torch.obs import trace as _obs_trace
 
@@ -95,13 +99,16 @@ class IterationPlan:
     weights: np.ndarray                  # (N, T, batch_pad) f32
 
     # --- host accounting (exact, unpadded; unique_rows, step_unique_rows
-    # and remote_rows_nodedup are counted from _true_hops when first read) ---
+    # and remote_rows_nodedup are counted from _true_hops() when first
+    # read) ---
     remote_rows_exact: int               # deduped remote feature rows fetched
     total_rows: int                      # all feature rows touched (tree, dup)
     true_counts: np.ndarray              # (T, N) roots per (step, shard)
     assignment: AssignmentMatrix
-    _true_hops: list = dataclasses.field(repr=False, compare=False)
-    #                                      [s][j][h]: true-root hop prefixes
+    _true_hops: Callable[[], list] = dataclasses.field(repr=False,
+                                                       compare=False)
+    #                                      () -> [s][j][h]: true-root hop
+    #                                      prefixes
     _owner: np.ndarray = dataclasses.field(repr=False, compare=False)
 
     # --- remote-feature cache (repro_torch.cache; defaults = cache off) ---
@@ -136,7 +143,7 @@ class IterationPlan:
 
     @functools.cached_property
     def _row_counts(self) -> tuple[int, int, int]:
-        return _count_rows(self._true_hops, self._owner)
+        return _count_rows(self._true_hops(), self._owner)
 
     @property
     def unique_rows(self) -> int:
@@ -196,18 +203,41 @@ def pad_vertices(owner: np.ndarray, n: int) -> np.ndarray:
 @dataclasses.dataclass(frozen=True)
 class DeviceTrees:
     """What :func:`plan_iteration` needs to draw a plan's trees on a
-    device: the graph's CSR there and each shard's pad vertex, both
+    device, and to dedup and translate them there: the graph's CSR and the
+    partition's rows (``owner``, ``local_idx``, each shard's pad vertex),
     functions of the graph and the partition alone, so built once
     (:meth:`build`) rather than on every plan."""
 
     csr: DeviceCSR
-    pad_vertex: np.ndarray
+    part: DevicePartition
+
+    @property
+    def pad_vertex(self) -> np.ndarray:
+        return self.part.pad_vertex_host
 
     @classmethod
-    def build(cls, graph: CSRGraph, owner: np.ndarray, num_shards: int,
-              device) -> "DeviceTrees":
-        return cls(DeviceCSR.from_graph(graph, device),
-                   pad_vertices(owner, num_shards))
+    def build(cls, graph: CSRGraph, owner: np.ndarray, local_idx: np.ndarray,
+              num_shards: int, device) -> "DeviceTrees":
+        csr = DeviceCSR.from_graph(graph, device)
+        return cls(csr, _device_partition(csr, owner, local_idx, num_shards))
+
+    def for_partition(self, owner: np.ndarray, local_idx: np.ndarray,
+                      num_shards: int) -> "DeviceTrees":
+        """The same CSR beside another partition's rows (a new world)."""
+        return DeviceTrees(self.csr, _device_partition(self.csr, owner,
+                                                       local_idx, num_shards))
+
+
+def _device_partition(csr: DeviceCSR, owner: np.ndarray,
+                      local_idx: np.ndarray,
+                      num_shards: int) -> DevicePartition:
+    """The partition's rows beside ``csr``, on its device and stream."""
+    if np.asarray(owner).shape != (csr.num_vertices,):
+        raise ValueError(f"DeviceTrees: owner of shape "
+                         f"{np.asarray(owner).shape} for a graph of "
+                         f"{csr.num_vertices} vertices")
+    return DevicePartition(owner, local_idx, pad_vertices(owner, num_shards),
+                           csr.indptr.device, csr.stream)
 
 
 def _slice_jobs(hops: list, jobs: list, fanout: int) -> list:
@@ -312,17 +342,23 @@ def plan_iteration(graph: CSRGraph,
     ``pregather=True`` (per-step exchanges presume a device-resident table
     to serve from).
 
-    ``device_trees``: the graph's CSR on a device and the shards' pad
-    vertices (:class:`DeviceTrees`, built from this ``graph`` and
-    ``owner``). With a ``sample_seed``, and a strategy other than ``lo``
-    (which samples a graph rebuilt on every call), the trees of all
+    ``device_trees``: the graph's CSR and the partition's rows on a device
+    (:class:`DeviceTrees`, built from this ``graph``, ``owner`` and
+    ``local_idx``). With a ``sample_seed``, and a strategy other than
+    ``lo`` (which samples a graph rebuilt on every call), the trees of all
     (shard, step) jobs are drawn there in one expansion of their
     concatenated roots, hop by hop (``plan.sample`` tagged
-    ``path="device"``); the plan is bitwise the host path's. Otherwise
-    the host samples (``path="host"``).
+    ``path="device"``). Where the plan also pregathers, with no
+    ``cache_index`` and no streamed store, the trees stay there: the §5.2
+    dedup and the translation run on the device too (``plan.dedup`` and
+    ``plan.translate`` tagged ``path="device"``), and only the finished
+    ``req`` and ``hop_idx`` come back. Otherwise the trees come back and
+    the host dedups and translates. Either way the plan is bitwise the host
+    path's. Without them the host samples (``path="host"``).
 
-    The plan keeps its trees' true-root prefixes (views, not copies) and
-    counts the Fig. 14 rows from them when first read, not here.
+    The plan keeps its trees' true-root prefixes (views, not copies; on the
+    device path the trees, copied to the host on first read) and counts the
+    Fig. 14 rows from them when first read, not here.
     """
     if cache_index is not None and c_max is not None \
             and cache_index.c_max > c_max:
@@ -338,6 +374,11 @@ def plan_iteration(graph: CSRGraph,
     span = _obs_trace.span
     on_device = (device_trees is not None and sample_seed is not None
                  and strategy != "lo")
+    # the dedup and translation follow the trees onto the device where the
+    # plan needs neither the cache's split nor the streamed store's
+    # compaction: every other plan dedups and translates on the host
+    device_plan = (on_device and pregather and cache_index is None
+                   and not streamed)
     if on_device and device_trees.pad_vertex.shape != (n,):
         raise ValueError(f"device_trees holds pad vertices of "
                          f"{device_trees.pad_vertex.shape[0]} shards, the "
@@ -385,9 +426,13 @@ def plan_iteration(graph: CSRGraph,
                     w_arr[s, t, :k] = 1.0
                 jobs.append((s, t, roots, k))
 
-        if on_device:
-            # the hash sees only (vertex, slot, hop, seed), so expanding
-            # the jobs' concatenated roots gives each job's trees as slices
+        # the hash sees only (vertex, slot, hop, seed), so expanding the
+        # jobs' concatenated roots gives each job's trees as slices
+        if device_plan:
+            trees = device_trees.csr.draw_trees(
+                np.concatenate([j[2] for j in jobs]), num_layers, fanout,
+                sample_seed)
+        elif on_device:
             blks = _slice_jobs(device_trees.csr.sample_trees(
                 np.concatenate([j[2] for j in jobs]), num_layers, fanout,
                 sample_seed), jobs, fanout)
@@ -398,9 +443,10 @@ def plan_iteration(graph: CSRGraph,
                                                      fanout, rng=rng,
                                                      seed=sample_seed),
                          jobs, label="plan.sample.job")
-        blocks: list[list[TreeBlock]] = [[None] * T for _ in range(n)]
-        for (s, t, _, k), blk in zip(jobs, blks):
-            blocks[s][t] = _pad_tree_block(blk, batch_pad, pad_vertex[s])
+        if not device_plan:
+            blocks: list[list[TreeBlock]] = [[None] * T for _ in range(n)]
+            for (s, t, _, k), blk in zip(jobs, blks):
+                blocks[s][t] = _pad_tree_block(blk, batch_pad, pad_vertex[s])
 
     # ---- gather plans ----
     def shard_needed(s: int, ts: Sequence[int]) -> np.ndarray:
@@ -408,9 +454,17 @@ def plan_iteration(graph: CSRGraph,
         return np.concatenate(ids) if ids else np.zeros(0, np.int64)
 
     hop_sizes = [batch_pad * fanout ** h for h in range(num_layers + 1)]
-    hop_idx = [np.zeros((n, T, sz), np.int32) for sz in hop_sizes]
+    hop_idx = (None if device_plan else
+               [np.zeros((n, T, sz), np.int32) for sz in hop_sizes])
 
-    if pregather:
+    if device_plan:
+        req, hop_idx, r_max_eff, remote_exact = _index_on_device(
+            device_trees.part, trees, jobs, T, batch_pad, num_layers, fanout,
+            local_rows, r_max)
+        step_req = None
+        c_max_eff = cache_hit_rows = l_max_eff = 0
+        remote_ids = feat_local = feat_fetch = tier_stats = None
+    elif pregather:
         with span("plan.dedup") as dedup_span:
             needed = [shard_needed(s, range(T)) for s in range(n)]
             if streamed:
@@ -510,11 +564,20 @@ def plan_iteration(graph: CSRGraph,
     # padded hops: views, kept for the counts the plan computes when read.
     total_rows = (sum(k for *_, k in jobs)
                   * sum(fanout ** h for h in range(num_layers + 1)))
-    true_hops: list[list[list[np.ndarray]]] = [[] for _ in range(n)]
-    for s, t, _, k in jobs:
-        if k:
-            true_hops[s].append([ids[:k * fanout ** h] for h, ids
-                                 in enumerate(blocks[s][t].hops)])
+    if device_plan:
+        # the trees stay on the device until a count is first read
+        read_true_hops = functools.partial(_true_hops_from_device, trees,
+                                           device_trees.csr, jobs, n,
+                                           num_layers, fanout)
+    else:
+        true_hops: list[list[list[np.ndarray]]] = [[] for _ in range(n)]
+        for s, t, _, k in jobs:
+            if k:
+                true_hops[s].append([ids[:k * fanout ** h] for h, ids
+                                     in enumerate(blocks[s][t].hops)])
+
+        def read_true_hops():
+            return true_hops
 
     return IterationPlan(
         num_shards=n, num_steps=T, fanout=fanout, num_layers=num_layers,
@@ -525,13 +588,53 @@ def plan_iteration(graph: CSRGraph,
         weights=w_arr,
         remote_rows_exact=remote_exact, total_rows=total_rows,
         true_counts=counts, assignment=amat,
-        _true_hops=true_hops, _owner=owner,
+        _true_hops=read_true_hops, _owner=owner,
         c_max=c_max_eff,
         cache_version=(cache_index.version if cache_index is not None
                        else -1),
         cache_hit_rows=cache_hit_rows, remote_ids=remote_ids,
         streamed=streamed, l_max=l_max_eff,
         feat_local=feat_local, feat_fetch=feat_fetch, tier_stats=tier_stats)
+
+
+def _index_on_device(part: DevicePartition, trees, jobs: list, steps: int,
+                     batch_pad: int, num_layers: int, fanout: int,
+                     local_rows: int, r_max: Optional[int]):
+    """``(req, hop_idx, r_max, remote_rows_exact)`` of a pregathered plan
+    whose trees ``trees`` were drawn on the device (``jobs``' trees one after
+    another, hop by hop): the §5.2 dedup and the workspace translation on
+    the device, bitwise :func:`build_gather_plan` and
+    :func:`workspace_indices` without a cache. The ``r_max`` budget is
+    checked against the counts before any slot is laid out."""
+    span = _obs_trace.span
+    with span("plan.dedup", path="device"):
+        dd = part.count(trees, np.array([k for *_, k in jobs], np.int64),
+                        steps, num_layers, fanout, batch_pad)
+        need = int(dd.req_count.max())
+        if r_max is None:
+            r_max = max(1, need)
+        if need > r_max:
+            raise PlanOverflow("r_max", need, int(r_max))
+        part.scatter(dd, r_max, local_rows)
+    with span("plan.translate", path="device"):
+        req, hop_idx = part.translate(dd)
+    return req, hop_idx, r_max, int(dd.req_count.sum())
+
+
+def _true_hops_from_device(trees, csr: DeviceCSR, jobs: list, n: int,
+                           num_layers: int, fanout: int) -> list:
+    """The true-root hop prefixes ``[s][j][h]`` of trees drawn on the
+    device by ``csr``, copied to the host."""
+    flat = csr.to_host(trees)
+    k = sum(j[3] for j in jobs)
+    sizes = [k * fanout ** h for h in range(num_layers + 1)]
+    ends = np.cumsum(sizes).tolist()
+    hops = [flat[e - sz:e] for sz, e in zip(sizes, ends)]
+    true_hops: list[list[list[np.ndarray]]] = [[] for _ in range(n)]
+    for (s, _, _, k), blk in zip(jobs, _slice_jobs(hops, jobs, fanout)):
+        if k:
+            true_hops[s].append(blk.hops)
+    return true_hops
 
 
 def _count_rows(true_hops: list, owner: np.ndarray) -> tuple[int, int, int]:

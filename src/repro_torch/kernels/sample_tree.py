@@ -12,8 +12,10 @@ bit for bit: a CUDA tensor launches the kernel, a CPU tensor takes the
 plain version, :func:`sample_hop_ref`, and there is no fallback from one
 to the other. :class:`DeviceCSR` holds a graph's CSR on a device and
 expands a whole plan's concatenated roots hop by hop
-(:meth:`DeviceCSR.sample_trees`): on CUDA, one launch per hop on a stream
-of its own, then one copy of every id into pinned host memory.
+(:meth:`DeviceCSR.draw_trees`): on CUDA, one launch per hop on a stream of
+its own, the trees left on the card for the planner's dedup
+(:mod:`repro_torch.kernels.plan_dedup`); :meth:`DeviceCSR.sample_trees`
+copies them into pinned host memory with one copy.
 :data:`launches` counts the kernel's launches, one per hop expanded on
 CUDA, and nothing else.
 """
@@ -238,14 +240,15 @@ class DeviceCSR:
                    torch.from_numpy(indices.astype(np.int32, copy=False))
                    .to(device))
 
-    def sample_trees(self, roots: np.ndarray, num_layers: int, fanout: int,
-                     seed: int) -> list:
-        """``hops[h]`` (len(roots) * fanout**h,) int64 numpy: the
-        fixed-fanout trees below ``roots``, hop by hop, equal to
-        ``sample_tree_block(graph, roots, num_layers, fanout,
-        seed=seed).hops``. The trees of a slice of the roots are the
-        matching slices of every hop. On CUDA the arrays are views of one
-        pinned host buffer of this call's own."""
+    def draw_trees(self, roots: np.ndarray, num_layers: int, fanout: int,
+                   seed: int) -> torch.Tensor:
+        """The fixed-fanout trees below ``roots`` on the CSR's device, hop
+        after hop in one int64 tensor of ``len(roots) * sum(fanout**h for
+        h in range(num_layers + 1))`` ids: hop h holds ``len(roots) *
+        fanout**h`` ids, root r's at ``[r * fanout**h, (r + 1) *
+        fanout**h)``, equal to ``sample_tree_block(graph, roots,
+        num_layers, fanout, seed=seed).hops``. On CUDA the launches queue
+        on the CSR's stream and are not waited for."""
         roots = np.ascontiguousarray(roots, dtype=np.int64)
         k = roots.size
         if k and (roots.min() < 0 or roots.max() >= self.num_vertices):
@@ -257,21 +260,43 @@ class DeviceCSR:
             for h in range(num_layers):
                 hops.append(sample_hop(self.indptr, self.indices, hops[-1],
                                        fanout, h, seed))
-            return [t.numpy() for t in hops]
+            return torch.cat(hops)
         ends = np.cumsum(sizes).tolist()
-        host = torch.empty(ends[-1], dtype=torch.int64, pin_memory=True)
-        out = host.numpy()
-        out[:k] = roots
+        host = torch.empty(k, dtype=torch.int64, pin_memory=True)
+        host.numpy()[:] = roots
         dev = self.indptr.device
         with torch.cuda.device(dev), torch.cuda.stream(self.stream):
             buf = torch.empty(ends[-1], dtype=torch.int64, device=dev)
-            buf[:k].copy_(host[:k], non_blocking=True)
+            buf[:k].copy_(host, non_blocking=True)
             for h in range(num_layers):
                 sample_hop(self.indptr, self.indices,
                            buf[ends[h] - sizes[h]:ends[h]], fanout, h, seed,
                            out=buf[ends[h]:ends[h + 1]])
-            host[k:].copy_(buf[k:], non_blocking=True)
+        return buf
+
+    def to_host(self, trees: torch.Tensor) -> np.ndarray:
+        """``trees`` (:meth:`draw_trees`) as a numpy array on the host: on
+        CUDA one copy into pinned memory of this call's own, queued on the
+        CSR's stream behind the draws, and a wait for it."""
+        if self.stream is None:
+            return trees.numpy()
+        host = torch.empty(trees.shape[0], dtype=torch.int64,
+                           pin_memory=True)
+        with torch.cuda.device(trees.device), torch.cuda.stream(self.stream):
+            host.copy_(trees, non_blocking=True)
             done = torch.cuda.Event()
             done.record(self.stream)
         done.synchronize()               # releases the GIL while it waits
+        return host.numpy()
+
+    def sample_trees(self, roots: np.ndarray, num_layers: int, fanout: int,
+                     seed: int) -> list:
+        """``hops[h]`` (len(roots) * fanout**h,) int64 numpy: the trees of
+        :meth:`draw_trees` on the host (:meth:`to_host`), hop by hop. The
+        trees of a slice of the roots are the matching slices of every
+        hop."""
+        out = self.to_host(self.draw_trees(roots, num_layers, fanout, seed))
+        k = len(roots)
+        sizes = [k * fanout ** h for h in range(num_layers + 1)]
+        ends = np.cumsum(sizes).tolist()
         return [out[e - s:e] for s, e in zip(sizes, ends)]

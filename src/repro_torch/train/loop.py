@@ -113,7 +113,7 @@ from repro_torch.core import distributed as engine
 from repro_torch.core.merging import MergingController, fold_assignment
 from repro_torch.core.micrograph import hopgnn_assignment
 from repro_torch.core.strategies import (DeviceTrees, IterationPlan,
-                                         Strategy, pad_vertices)
+                                         Strategy)
 from repro_torch.core.tree import tree_clone
 from repro_torch.device import resolve_device
 from repro_torch.features import FeatureStore
@@ -286,11 +286,12 @@ class Trainer:
         self.opt_state = self.optimizer.init(self.params)
         self._uploader: Optional[PlanUploader] = None   # created in fit()
         self.strategy: Strategy = strategy
-        # the planner draws its trees on the card, from a CSR and pad
-        # vertices put there once; lo samples a graph it rebuilds per plan
+        # the planner draws, dedups and translates its trees on the card,
+        # from a CSR and the partition's rows put there once; lo samples a
+        # graph it rebuilds per plan
         self._device_trees = (
-            DeviceTrees.build(graph, self.owner, self.num_shards,
-                              self.device)
+            DeviceTrees.build(graph, self.owner, self.local_idx,
+                              self.num_shards, self.device)
             if self.device.type == "cuda" and strategy != "lo" else None)
         self.pregather = pregather
         self.merging = (strategy == "hopgnn") if merging is None else merging
@@ -1058,9 +1059,8 @@ class Trainer:
         self.streamed = not self.store.resident
         self.table = self._device_table()
         if self._device_trees is not None:
-            self._device_trees = dataclasses.replace(
-                self._device_trees,
-                pad_vertex=pad_vertices(self.owner, self.num_shards))
+            self._device_trees = self._device_trees.for_partition(
+                self.owner, self.local_idx, self.num_shards)
         # merge controller: the base rotation assignment is world-shaped;
         # the §5.3 examination restarts against the new world
         self.controller = None

@@ -196,7 +196,8 @@ def world():
     owner, local_idx, rows = local_index_map(part, SHARDS)
     return dict(graph=graph, part=part, owner=owner, local_idx=local_idx,
                 local_rows=rows, labels=(comm % 7).astype(np.int32),
-                trees=DeviceTrees.build(graph, owner, SHARDS, "cpu"))
+                trees=DeviceTrees.build(graph, owner, local_idx, SHARDS,
+                                        "cpu"))
 
 
 def _plan_kwargs(w, strategy: str, pregather: bool, padded: bool,
@@ -267,7 +268,8 @@ def test_sample_stage_is_tagged_host_where_the_host_samples(world, case):
 
 
 def test_device_trees_of_another_partition_are_refused(world):
-    trees = DeviceTrees(world["trees"].csr, world["trees"].pad_vertex[:3])
+    trees = world["trees"].for_partition(world["owner"] % 3,
+                                         world["local_idx"], 3)
     with pytest.raises(ValueError, match="pad vertices of 3 shards"):
         plan_iteration(**_plan_kwargs(world, "hopgnn", True, False),
                        device_trees=trees)
